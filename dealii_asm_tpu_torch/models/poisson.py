@@ -1,0 +1,264 @@
+"""JSON-config-driven Poisson solve (PyTorch).
+
+Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
+structured Cartesian families ``hypercube`` and ``anisotropy`` on one
+device: mesh → float64 operator → multigrid (float32 levels by default)
+behind a precision adapter → CG with deal.II's ReductionControl.  The result
+dict carries the same keys (``it``, ``converged``, ``time``, ``solution``
+...), plus ``setup_time``.  Options outside the slice raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import torch
+
+from ..device import (LEVEL_DTYPE, OUTER_DTYPE, assert_no_tf32,
+                      resolve_device, synchronize)
+from ..fem.dofs import DofHandler
+from ..mesh.grid import StructuredMesh
+from ..ops.laplace import LaplaceOperator
+from ..ops.transfer import TwoLevelTransfer, p_sequence
+from ..precond.adapter import PrecisionAdapter
+from ..precond.factory import create_system_preconditioner
+from ..precond.multigrid import Multigrid
+from ..solvers.krylov import solve as krylov_solve
+from ..utils.config import get_child, get_param
+from ..utils.table import ConvergenceTable
+
+# "mg number type" (top-level key, as in the JAX run_config): "" means the outer
+# type; a missing key means the policy's level type
+_LEVEL_DTYPES = {"": OUTER_DTYPE, "float64": torch.float64,
+                 "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class MeshFamily:
+    """A refinement family of structured Cartesian meshes."""
+
+    dim: int
+    base_cells: tuple
+    n_refinements: int
+    lengths: tuple
+    name: str
+
+    def mesh_at(self, refinement: int) -> StructuredMesh:
+        cells = tuple(c * (1 << refinement) for c in self.base_cells)
+        return StructuredMesh(self.dim, cells, lengths=self.lengths)
+
+    @property
+    def fine_mesh(self) -> StructuredMesh:
+        return self.mesh_at(self.n_refinements)
+
+    @property
+    def n_levels(self) -> int:
+        return self.n_refinements + 1
+
+
+def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
+    dim = int(get_param(params, "dim", 2))
+    n_refine = int(get_param(params, "n refinements", 6))
+    mesh_p = get_child(params, "mesh")
+    name = get_param(mesh_p, "name", "hypercube")
+    if name == "hypercube":
+        ns = int(get_param(mesh_p, "n subdivisions", 1))
+        log("- Create mesh: hypercube\n")
+        return MeshFamily(dim, (ns,) * dim, n_refine, (1.0,) * dim, name)
+    if name == "anisotropy":
+        stretch = float(get_param(mesh_p, "stratch", 1.0))
+        log(f"- Create mesh: anisotropy\n  - stratch: {stretch:g}\n")
+        return MeshFamily(dim, (1,) * dim, n_refine,
+                          tuple([1.0] * (dim - 1) + [stretch]), name)
+    if name in ("symmetric hypercube", "kershaw", "kershaw-mp"):
+        raise NotImplementedError(
+            f"mesh {name!r} is not ported yet (ROADMAP item 8)")
+    if name == "hyperball":
+        raise NotImplementedError(
+            "mesh 'hyperball' is not ported yet (ROADMAP item 13)")
+    raise ValueError(f"Geometry with the name <{name}> is not known!")
+
+
+def mg_level_layout(precon_p: dict, family, fe_degree: int,
+                    log=lambda *_: None):
+    """(refinement, degree) per level, coarse → fine, and the index of the
+    intermediate level (the last degree-1 level seen from the top)."""
+    mg_type = get_param(precon_p, "mg type", "h")
+    degrees = p_sequence(fe_degree, get_param(precon_p, "mg p sequence",
+                                              "bisect"))
+    log(f" - type:       {mg_type}")
+    n_trias = family.n_refinements + 1
+    if mg_type == "h":
+        levels = [(r, degrees[-1]) for r in range(n_trias)]
+    elif mg_type in ("p", "hp", "ph"):
+        raise NotImplementedError(
+            f"mg type {mg_type!r} is not ported yet (ROADMAP item 9)")
+    else:
+        raise ValueError(f"Multigrid variant <{mg_type}> is not known!")
+    intermediate = 0
+    for i in range(len(levels) - 1, -1, -1):
+        if levels[i][1] == 1:
+            intermediate = i
+            break
+    return levels, intermediate
+
+
+def _build_multigrid(params: dict, family: MeshFamily, fe_degree: int, log,
+                     dtype, device) -> Multigrid:
+    levels, intermediate = mg_level_layout(params, family, fe_degree, log)
+    ops, dofs_list = [], []
+    for r, d in levels:
+        mesh = family.mesh_at(r)
+        dofs = DofHandler(mesh, d)
+        ops.append(LaplaceOperator(dofs, dtype=dtype, device=device))
+        dofs_list.append(dofs)
+        log(f"- Create operator:\n  - n cells:          {mesh.n_cells_total}\n"
+            f"  - n dofs:           {dofs.n_dofs}\n")
+    transfers = [TwoLevelTransfer(dofs_list[i], dofs_list[i + 1], dtype=dtype,
+                                  device=device)
+                 for i in range(len(levels) - 1)]
+
+    smoother_p = get_child(params, "mg smoother")
+    interm_p = get_child(params, "mg intermediate smoother")
+    if not interm_p.get("type"):
+        interm_p = smoother_p
+    one_sided = get_param(params, "one-sided v-cycle", False)
+    n_coarse_cycles = int(get_param(params, "n coarse cycles", 1))
+
+    def make_smoother(level: int, p: dict):
+        log(f"- Setting up smoother on level {level}\n")
+        return create_system_preconditioner(ops[level], p, log)
+
+    log("- Setting up coarse-grid solver on level 0\n")
+    coarse = create_system_preconditioner(
+        ops[0], get_child(params, "mg coarse grid solver"), log)
+    if intermediate > 0:
+        inner = Multigrid(ops[: intermediate + 1],
+                          [make_smoother(l, interm_p)
+                           for l in range(1, intermediate + 1)],
+                          transfers[:intermediate], coarse.vmult,
+                          one_sided=one_sided)
+        return Multigrid(ops[intermediate:],
+                         [make_smoother(l, smoother_p)
+                          for l in range(intermediate + 1, len(levels))],
+                         transfers[intermediate:], inner.vmult,
+                         one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
+    smoothers = [make_smoother(l, smoother_p) for l in range(1, len(levels))]
+    return Multigrid(ops, smoothers, transfers, coarse.vmult,
+                     one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
+
+
+def _check_unported_options(params: dict) -> None:
+    if get_param(params, "n devices", 1) not in (1, "1"):
+        raise NotImplementedError(
+            "'n devices' > 1 is not ported yet (ROADMAP item 14)")
+    if get_param(params, "operator mapping type", ""):
+        raise NotImplementedError(
+            "'operator mapping type' is not ported yet (ROADMAP item 8)")
+    if get_param(params, "do output", False):
+        raise NotImplementedError("'do output' is not ported yet "
+                                  "(ROADMAP item 12)")
+    # "auto" engages refinement only for n_dofs > 2M with <= 80 nodes per
+    # direction, which no 3D mesh satisfies
+    if get_param(params, "mixed precision solve", "auto") is True:
+        raise NotImplementedError(
+            "mixed-precision refinement is not ported yet (ROADMAP item 11)")
+
+
+def run_config(params: dict, table: ConvergenceTable | None = None,
+               log=print, device="cpu"):
+    """Run one config on ``device`` (float64 outer solve); returns the result
+    dict."""
+    t_setup = time.perf_counter()
+    device = resolve_device(device)
+    assert_no_tf32()
+    _check_unported_options(params)
+    dtype = OUTER_DTYPE
+    table = table or ConvergenceTable()
+    fe_degree = int(get_param(params, "degree", 1))
+    family = make_mesh_family(params, log)
+    mesh = family.fine_mesh
+    dofs = DofHandler(mesh, fe_degree)
+    op = LaplaceOperator(dofs, dtype=dtype, device=device)
+    b = op.assemble_rhs(get_param(params, "rhs", "constant"))
+
+    table.add_value("name", get_param(params, "name", family.name))
+    table.add_value("n_cells", mesh.n_cells_total)
+    table.add_value("L", family.n_levels)
+    table.add_value("n_dofs", dofs.n_dofs)
+
+    precon_p = get_child(params, "preconditioner")
+    if precon_p.get("type", "") == "Multigrid":
+        log("- Create system preconditioner: Multigrid")
+        # float MG levels under a float64 outer Krylov, as the reference
+        level_name = params.get("mg number type")
+        if level_name is not None and level_name not in _LEVEL_DTYPES:
+            raise NotImplementedError(
+                f"mg number type {level_name!r} is not ported yet "
+                "(ROADMAP item 9)")
+        level_dtype = _LEVEL_DTYPES.get(level_name, LEVEL_DTYPE)
+        precon = _build_multigrid(precon_p, family, fe_degree, log,
+                                  level_dtype, device)
+        if level_dtype != dtype:
+            precon = PrecisionAdapter(precon, level_dtype)
+    else:
+        precon = create_system_preconditioner(op, precon_p, log)
+
+    solver_p = get_child(params, "solver")
+    solver_type = get_param(solver_p, "type", "")
+    max_it = int(get_param(solver_p, "max iterations", 1000))
+    abs_tol = float(get_param(solver_p, "abs tolerance", 1e-10))
+    rel_tol = float(get_param(solver_p, "rel tolerance", 1e-2))
+    log(f" - Solving with {solver_type}")
+    log(f"   - max iterations: {max_it}")
+    log(f"   - abs tolerance:  {abs_tol:g}")
+    log(f"   - rel tolrance:   {rel_tol:g}")
+
+    def dispatch():
+        return krylov_solve(solver_type, op.vmult, b, M=precon.vmult,
+                            max_iterations=max_it, abs_tolerance=abs_tol,
+                            rel_tolerance=rel_tol)
+
+    synchronize(device)
+    setup_time = time.perf_counter() - t_setup
+    result = dispatch()  # warm-up
+    best_of = int(get_param(solver_p, "best of", 1))
+    print_timing = get_param(params, "print timing", False)
+    solve_time = 999.0
+    if result.converged and (best_of > 1 or print_timing):
+        for _ in range(best_of):
+            synchronize(device)
+            t0 = time.perf_counter()
+            r2 = dispatch()
+            synchronize(device)
+            solve_time = min(solve_time, time.perf_counter() - t0)
+            if r2.n_iterations != result.n_iterations:
+                raise RuntimeError(
+                    f"repeated solve took {r2.n_iterations} iterations, the "
+                    f"first {result.n_iterations}")
+    if result.converged:
+        log(f"   - n iterations:   {result.n_iterations}")
+        if print_timing:
+            log(f"   - time:           {solve_time} #")
+        log("")
+        table.add_value("it", result.n_iterations)
+    else:
+        log("   - DID NOT CONVERGE!\n")
+        table.add_value("it", 999)
+    if print_timing:
+        table.add_value("time", solve_time)
+    table.add_value("aspect_ratio", mesh.max_aspect_ratio())
+    table.end_row()
+    return {
+        "n_cells": mesh.n_cells_total,
+        "L": family.n_levels,
+        "n_dofs": dofs.n_dofs,
+        "it": result.n_iterations if result.converged else 999,
+        "converged": result.converged,
+        "time": solve_time,
+        "setup_time": setup_time,
+        "solution": result.x,
+        "table": table,
+    }

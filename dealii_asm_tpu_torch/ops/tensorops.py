@@ -1,0 +1,146 @@
+"""Global tensor-product operator algebra on the node lattice.
+
+Counterpart of ``dealii_asm_tpu/ops/tensorops.py``.  On Cartesian meshes the
+Laplace operator and the element-centric FDM Schwarz apply factor per axis:
+
+- A = Σ_d  M̂ ⊗ … K̂_d … ⊗ M̂  with assembled banded 1D mass/stiffness M̂, K̂;
+- P⁻¹ = (⊗_d G_dᵀ)·diag(1/Σ_d λ_d)·(⊗_d G_d) with G_d the per-window
+  eigen-transform fused with the window selector.
+
+The NumPy setup functions are carried over (the JAX module sits behind a package
+``__init__`` that imports jax), without the optional C++ setup core: their
+loops are O(N_d) per axis; the applies are plain torch and serve as the
+reference versions of the CUDA kernels.  Grids are (Nz, Ny, Nx) with x
+fastest; direction d (x = 0) lives on grid axis dim-1-d.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fem.lagrange import reference_mass_stiffness_1d
+
+# -- NumPy setup --------------------------------------------------------------
+
+
+def assemble_global_1d(degree: int, n_cells: int, h: float, periodic: bool,
+                       n_q_1d: int | None = None):
+    """Global assembled 1D mass/stiffness (N × N), natural boundary rows."""
+    M_ref, K_ref = reference_mass_stiffness_1d(degree, n_q_1d)
+    p = degree
+    N = p * n_cells if periodic else p * n_cells + 1
+    M = np.zeros((N, N))
+    K = np.zeros((N, N))
+    for c in range(n_cells):
+        idx = (c * p + np.arange(p + 1)) % N
+        M[np.ix_(idx, idx)] += M_ref * h
+        K[np.ix_(idx, idx)] += K_ref / h
+    return M, K
+
+
+def global_laplace_1d_factors(mesh, degree: int, n_q_1d: int | None = None):
+    """Per-direction (M̂_d, K̂_d) for the separable global Laplace."""
+    return [assemble_global_1d(degree, mesh.n_cells[d], mesh.h[d],
+                               mesh.periodic[d], n_q_1d)
+            for d in range(mesh.dim)]
+
+
+def fdm_direction_transform(eigvecs_c: np.ndarray, n_nodes: int, degree: int,
+                            n_overlap: int, periodic: bool) -> np.ndarray:
+    """G_d (W·m × N) of element windows: window selection fused with the
+    eigen-transform, G[(w,k), n] = Σ_s V_w[s,k]·[n == wrap(w·p − (o−1) + s)].
+    Out-of-range slots (ghosts beyond a boundary) select nothing."""
+    C, m, _ = eigvecs_c.shape
+    G = np.zeros((C * m, n_nodes))
+    for c in range(C):
+        for s in range(m):
+            n = c * degree - (n_overlap - 1) + s
+            if periodic:
+                n %= n_nodes
+            elif n < 0 or n >= n_nodes:
+                continue
+            G[c * m:(c + 1) * m, n] += eigvecs_c[c, s, :]
+    return G
+
+
+def banded_offsets(N: int, bandwidth: int, periodic: bool) -> list[int]:
+    """Distinct diagonal offsets of a banded (possibly periodic) N×N matrix."""
+    if periodic and 2 * bandwidth + 1 > N:
+        return list(range(N))
+    return list(range(-bandwidth, bandwidth + 1))
+
+
+def banded_diagonals(M: np.ndarray, bandwidth: int, periodic: bool = False):
+    """(diags, offsets): diags[k][i] = M[i, i+offsets[k]] (zero outside the
+    matrix when not periodic; wrapped mod N when periodic)."""
+    N = M.shape[0]
+    offs = banded_offsets(N, bandwidth, periodic)
+    out = np.zeros((len(offs), N))
+    idx = np.arange(N)
+    for k, off in enumerate(offs):
+        cols = idx + off
+        if periodic:
+            out[k] = M[idx, cols % N]
+        else:
+            ok = (cols >= 0) & (cols < N)
+            out[k, idx[ok]] = M[idx[ok], cols[ok]]
+    return out, offs
+
+
+# -- plain torch applies -------------------------------------------------------
+
+
+def axis_matmul(T: torch.Tensor, M: torch.Tensor, grid_axis: int):
+    """Contract M (out, in) against one axis of the grid tensor T."""
+    return torch.movedim(torch.tensordot(T, M, dims=([grid_axis], [1])), -1,
+                         grid_axis)
+
+
+def banded_axis_apply(t: torch.Tensor, diags: torch.Tensor, grid_axis: int):
+    """y = M̂ t along one grid axis, M̂ given by its (2b+1, N) diagonal table
+    with offsets -b..b (non-periodic: zero padding)."""
+    nd = t.ndim
+    b = (diags.shape[0] - 1) // 2
+    N = t.shape[grid_axis]
+    shape = [1] * nd
+    shape[grid_axis] = N
+    pad = [0, 0] * nd  # F.pad order: last axis first
+    pad[2 * (nd - 1 - grid_axis)] = b
+    pad[2 * (nd - 1 - grid_axis) + 1] = b
+    tp = torch.nn.functional.pad(t, pad)
+    acc = None
+    for k in range(2 * b + 1):
+        term = diags[k].reshape(shape) * tp.narrow(grid_axis, k, N)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def separable_laplace_apply_banded(u_grid, Mdiags, Kdiags):
+    """v = Kz My Mx u + Mz Ky Mx u + Mz My Kx u with banded axis applies
+    (3D; Mdiags/Kdiags ordered by direction, x first)."""
+    ap = lambda t, tab, d: banded_axis_apply(t, tab, 2 - d)
+    a = ap(u_grid, Mdiags[0], 0)
+    b = ap(a, Mdiags[1], 1)
+    v = ap(b, Kdiags[2], 2)
+    v = v + ap(ap(a, Kdiags[1], 1), Mdiags[2], 2)
+    v = v + ap(ap(ap(u_grid, Kdiags[0], 0), Mdiags[1], 1), Mdiags[2], 2)
+    return v
+
+
+def fdm_global_apply(x_grid, Gs, Gts, inv_denom):
+    """P⁻¹x = (⊗G_dᵀ)·diag(inv_denom)·(⊗G_d)x — six axis matmuls + one scale."""
+    dim = x_grid.ndim
+    t = x_grid
+    for d in range(dim):
+        t = axis_matmul(t, Gs[d], dim - 1 - d)
+    t = t * inv_denom
+    for d in range(dim):
+        t = axis_matmul(t, Gts[d], dim - 1 - d)
+    return t
+
+
+def outer_grid(vecs_xyz):
+    """(Nz, Ny, Nx) outer product of per-direction vectors given x first."""
+    vx, vy, vz = vecs_xyz
+    return vz[:, None, None] * vy[None, :, None] * vx[None, None, :]
