@@ -6,8 +6,9 @@ module by module (``ops.laplace.LaplaceOperator`` stands for
 ``dealii_asm_tpu.ops.laplace.LaplaceOperator``, and so on).  Hot paths run
 hand-written CUDA kernels (``kernels/``); every kernel has a plain PyTorch
 version beside it, which runs on CPU tensors.  The package imports torch,
-NumPy and SciPy, plus the JAX package's jax-free host layer (meshes, DoF
-lattices, 1D Lagrange elements, config helpers) — never jax.
+NumPy and SciPy, and carries its own copy of the NumPy host layer it needs
+(meshes and their transforms, DoF lattices, 1D Lagrange elements, FDM 1D
+setup, config helpers): never jax, nor any module of the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,12 @@
 """Device and dtype policy of the port.
 
 The outer Krylov solve runs in float64, the multigrid levels in float32
-(``OUTER_DTYPE``, ``LEVEL_DTYPE``).  TF32 stays off: operator noise on the
-level A-path costs outer iterations (measured in the JAX package: 8 instead
-of 5 at 2.1M DoFs), so every constructor applies the policy through
-``resolve_device`` and ``run_config`` checks it with ``assert_no_tf32``.
+(``OUTER_DTYPE``, ``LEVEL_DTYPE``), on ``DEFAULT_DEVICE`` unless the caller
+passes ``device="cpu"``; without a GPU that default raises.  TF32 stays
+off: operator noise on the level A-path costs outer iterations (measured in
+the JAX package: 8 instead of 5 at 2.1M DoFs), so every constructor applies
+the policy through ``resolve_device`` and ``run_config`` checks it with
+``assert_no_tf32``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import torch
 
 OUTER_DTYPE = torch.float64
 LEVEL_DTYPE = torch.float32
+# every entry point runs on the card unless the caller asks for the CPU
+DEFAULT_DEVICE = "cuda"
 
 
 def apply_precision_policy() -> None:

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "smoother_step.cu")
+SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "merged_laplace.cu",
+           "smoother_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 LIB_NAME = "libdealii_asm_kernels.so"
@@ -33,11 +34,14 @@ _I = ctypes.c_int
 _BANDED = [_P, _P, _P] + [_P] * 6 + [_I] * 5 + [_P]
 _FDM = [_P, _P, _P] + [_P] * 12 + [_I] * 4
 _STEP = [_P, _P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
+_MERGED = [_P] * 6 + [_I] * 5 + [_P]
 SIGNATURES = {
     "dat_banded_laplace_f32": _BANDED,
     "dat_banded_laplace_f64": _BANDED,
     "dat_fdm_patch_f32": _FDM + [ctypes.c_float, _I, _P],
     "dat_fdm_patch_f64": _FDM + [ctypes.c_double, _I, _P],
+    "dat_merged_laplace_f32": _MERGED,
+    "dat_merged_laplace_f64": _MERGED,
     "dat_smoother_step_f32": _STEP + [ctypes.c_float, _P],
     "dat_smoother_step_f64": _STEP + [ctypes.c_double, _P],
 }

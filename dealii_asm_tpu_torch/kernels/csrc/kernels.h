@@ -1,7 +1,8 @@
 // Shared declarations of the port's hand-written Hopper kernels.
 //
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
-// fdm_patch.cu); smoother_step.cu composes their host launchers.  Every
+// fdm_patch.cu, merged_laplace.cu); smoother_step.cu composes the host
+// launchers of the first two.  Every
 // extern "C" entry returns cudaGetLastError() after its launches, so the
 // Python wrapper can raise on a refused launch.
 //

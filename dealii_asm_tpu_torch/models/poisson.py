@@ -1,12 +1,13 @@
 """JSON-config-driven Poisson solve (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
-structured Cartesian families ``hypercube`` and ``anisotropy`` on one
-device: mesh → float64 operator → multigrid (float32 levels by default)
-behind a precision adapter → CG with deal.II's ReductionControl.  The result
-dict carries the same keys (``it``, ``converged``, ``time``, ``solution``
-...), plus ``setup_time``.  Options outside the slice raise
-NotImplementedError naming their ROADMAP item.
+structured families ``hypercube``, ``anisotropy`` and the deformed
+``kershaw``/``kershaw-mp`` on one device: mesh → float64 operator →
+multigrid (h, p, hp or ph levels, float32 by default) behind a precision
+adapter → CG with deal.II's ReductionControl.  The result dict carries the
+same keys (``it``, ``converged``, ``time``, ``solution`` ...), plus
+``setup_time`` and the first solve's ``residuals``.  Options outside the
+slice raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ from dataclasses import dataclass
 
 import torch
 
-from ..device import (LEVEL_DTYPE, OUTER_DTYPE, assert_no_tf32,
-                      resolve_device, synchronize)
+from ..device import (DEFAULT_DEVICE, LEVEL_DTYPE, OUTER_DTYPE,
+                      assert_no_tf32, resolve_device, synchronize)
 from ..fem.dofs import DofHandler
 from ..mesh.grid import StructuredMesh
+from ..mesh.transforms import kershaw_transform
 from ..ops.laplace import LaplaceOperator
 from ..ops.transfer import TwoLevelTransfer, p_sequence
 from ..precond.adapter import PrecisionAdapter
@@ -37,17 +39,21 @@ _LEVEL_DTYPES = {"": OUTER_DTYPE, "float64": torch.float64,
 
 @dataclass(frozen=True)
 class MeshFamily:
-    """A refinement family of structured Cartesian meshes."""
+    """A refinement family of structured meshes; ``transform`` (or None)
+    deforms every member, whose operators map with ``mapping_degree``."""
 
     dim: int
     base_cells: tuple
     n_refinements: int
     lengths: tuple
     name: str
+    transform: object = None
+    mapping_degree: int = 1
 
     def mesh_at(self, refinement: int) -> StructuredMesh:
         cells = tuple(c * (1 << refinement) for c in self.base_cells)
-        return StructuredMesh(self.dim, cells, lengths=self.lengths)
+        return StructuredMesh(self.dim, cells, lengths=self.lengths,
+                              transform=self.transform)
 
     @property
     def fine_mesh(self) -> StructuredMesh:
@@ -63,6 +69,7 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
     n_refine = int(get_param(params, "n refinements", 6))
     mesh_p = get_child(params, "mesh")
     name = get_param(mesh_p, "name", "hypercube")
+    mapping_degree = int(get_param(params, "mapping degree", 10))
     if name == "hypercube":
         ns = int(get_param(mesh_p, "n subdivisions", 1))
         log("- Create mesh: hypercube\n")
@@ -72,9 +79,21 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
         log(f"- Create mesh: anisotropy\n  - stratch: {stretch:g}\n")
         return MeshFamily(dim, (1,) * dim, n_refine,
                           tuple([1.0] * (dim - 1) + [stretch]), name)
-    if name in ("symmetric hypercube", "kershaw", "kershaw-mp"):
+    if name in ("kershaw", "kershaw-mp"):
+        epsy = float(get_param(mesh_p, "epsy", 0.0))
+        epsz = float(get_param(mesh_p, "epsz", 0.0))
+        if epsy == 0.0 or epsz == 0.0:
+            epsy = epsz = float(get_param(mesh_p, "eps", 1.0))
+        ni = int(get_param(mesh_p, "n initial refinements", 1))
+        ns = int(get_param(mesh_p, "n subdivisions", 3))
+        log(f"- Create mesh: kershaw\n  - epsx: 1\n  - epsy: {epsy:g}\n"
+            f"  - epsz: {epsz:g}\n")
+        tf = kershaw_transform(epsy, epsz, shift_mp=(name == "kershaw-mp"))
+        return MeshFamily(dim, (ns * (1 << ni),) * dim, n_refine,
+                          (1.0,) * dim, name, tf, min(mapping_degree, 3))
+    if name == "symmetric hypercube":
         raise NotImplementedError(
-            f"mesh {name!r} is not ported yet (ROADMAP item 8)")
+            f"mesh {name!r} is not ported yet (ROADMAP item 9)")
     if name == "hyperball":
         raise NotImplementedError(
             "mesh 'hyperball' is not ported yet (ROADMAP item 13)")
@@ -84,19 +103,29 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
 def mg_level_layout(precon_p: dict, family, fe_degree: int,
                     log=lambda *_: None):
     """(refinement, degree) per level, coarse → fine, and the index of the
-    intermediate level (the last degree-1 level seen from the top)."""
+    intermediate level (the last degree-1 level seen from the top)
+    (``dealii_asm_tpu/models/poisson.py:166-206``)."""
     mg_type = get_param(precon_p, "mg type", "h")
-    degrees = p_sequence(fe_degree, get_param(precon_p, "mg p sequence",
-                                              "bisect"))
+    mg_p_seq = get_param(precon_p, "mg p sequence", "bisect")
     log(f" - type:       {mg_type}")
+    log(f" - p sequence: {mg_p_seq}\n")
+    degrees = p_sequence(fe_degree, mg_p_seq)  # ascending
     n_trias = family.n_refinements + 1
+    top = family.n_refinements
     if mg_type == "h":
         levels = [(r, degrees[-1]) for r in range(n_trias)]
-    elif mg_type in ("p", "hp", "ph"):
-        raise NotImplementedError(
-            f"mg type {mg_type!r} is not ported yet (ROADMAP item 9)")
+    elif mg_type == "p":
+        levels = [(top, d) for d in degrees]
+    elif mg_type == "hp":
+        levels = [(0, d) for d in degrees] + [(r, degrees[-1])
+                                              for r in range(n_trias)]
+    elif mg_type == "ph":
+        levels = [(r, degrees[0]) for r in range(n_trias)] + [(top, d)
+                                                              for d in degrees]
     else:
         raise ValueError(f"Multigrid variant <{mg_type}> is not known!")
+    # the junction of hp/ph repeats a level; drop consecutive duplicates
+    levels = [lv for i, lv in enumerate(levels) if i == 0 or lv != levels[i - 1]]
     intermediate = 0
     for i in range(len(levels) - 1, -1, -1):
         if levels[i][1] == 1:
@@ -112,7 +141,8 @@ def _build_multigrid(params: dict, family: MeshFamily, fe_degree: int, log,
     for r, d in levels:
         mesh = family.mesh_at(r)
         dofs = DofHandler(mesh, d)
-        ops.append(LaplaceOperator(dofs, dtype=dtype, device=device))
+        ops.append(LaplaceOperator(dofs, dtype=dtype, device=device,
+                                   mapping_degree=family.mapping_degree))
         dofs_list.append(dofs)
         log(f"- Create operator:\n  - n cells:          {mesh.n_cells_total}\n"
             f"  - n dofs:           {dofs.n_dofs}\n")
@@ -168,7 +198,7 @@ def _check_unported_options(params: dict) -> None:
 
 
 def run_config(params: dict, table: ConvergenceTable | None = None,
-               log=print, device="cpu"):
+               log=print, device=DEFAULT_DEVICE):
     """Run one config on ``device`` (float64 outer solve); returns the result
     dict."""
     t_setup = time.perf_counter()
@@ -181,7 +211,8 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     family = make_mesh_family(params, log)
     mesh = family.fine_mesh
     dofs = DofHandler(mesh, fe_degree)
-    op = LaplaceOperator(dofs, dtype=dtype, device=device)
+    op = LaplaceOperator(dofs, dtype=dtype, device=device,
+                         mapping_degree=family.mapping_degree)
     b = op.assemble_rhs(get_param(params, "rhs", "constant"))
 
     table.add_value("name", get_param(params, "name", family.name))
@@ -259,6 +290,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         "converged": result.converged,
         "time": solve_time,
         "setup_time": setup_time,
+        "residuals": result.residuals,
         "solution": result.x,
         "table": table,
     }

@@ -7,6 +7,10 @@ Laplace operator and the element-centric FDM Schwarz apply factor per axis:
 - P⁻¹ = (⊗_d G_dᵀ)·diag(1/Σ_d λ_d)·(⊗_d G_d) with G_d the per-window
   eigen-transform fused with the window selector.
 
+On deformed meshes the Laplace operator is the merged form: per-axis global
+value/derivative evaluation matrices E (C_d·q × N_d) and the symmetric
+coefficient w|J|J⁻¹J⁻ᵀ on the quadrature grid (``merged_laplace_apply``).
+
 The NumPy setup functions are carried over (the JAX module sits behind a package
 ``__init__`` that imports jax), without the optional C++ setup core: their
 loops are O(N_d) per axis; the applies are plain torch and serve as the
@@ -62,6 +66,64 @@ def fdm_direction_transform(eigvecs_c: np.ndarray, n_nodes: int, degree: int,
                 continue
             G[c * m:(c + 1) * m, n] += eigvecs_c[c, s, :]
     return G
+
+
+def interp_direction_transform(B: np.ndarray, n_nodes: int, degree: int,
+                               n_cells: int, periodic: bool) -> np.ndarray:
+    """Global per-axis evaluation matrix E (C·q × N) from a 1D shape matrix
+    B (q × p+1): row (c, iq) evaluates at quadrature point iq of cell c."""
+    q, n1 = B.shape
+    E = np.zeros((n_cells * q, n_nodes))
+    for c in range(n_cells):
+        cols = (c * degree + np.arange(n1)) % n_nodes
+        E[c * q:(c + 1) * q, cols] = B
+    return E
+
+
+# symmetric coefficient components, packed [xx, yy, zz, xy, xz, yz]
+SYM_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+
+
+def pack_merged_coeff(coeff: torch.Tensor, h) -> torch.Tensor:
+    """(C, Q, 3, 3) reference-gradient coefficient → cell-major (C, 6, Q)
+    in box coordinates, C_box[a, b] = h_a·C_ref[a, b]·h_b (the global
+    derivative matrices differentiate in box coordinates, ∂ξ = h·∂box;
+    ``dealii_asm_tpu/ops/laplace.py:353-370``)."""
+    return torch.stack([coeff[:, :, a, b] * float(h[a] * h[b])
+                        for a, b in SYM_PAIRS], dim=1)
+
+
+def merged_coeff_qgrid(coeff6: torch.Tensor, cells_zyx: tuple, qn: int):
+    """Cell-major (C, 6, Q) → six (Cz·q, Cy·q, Cx·q) q-grids (the JAX
+    package's ``coeff6`` layout)."""
+    cz, cy, cx = cells_zyx
+    g = coeff6.reshape(cz, cy, cx, 6, qn, qn, qn).permute(3, 0, 4, 1, 5, 2, 6)
+    return list(g.reshape(6, cz * qn, cy * qn, cx * qn))
+
+
+def merged_laplace_apply(u_grid, Ev, Ed, coeff6):
+    """Deformed-geometry Laplace apply as q-space axis products (3D):
+    g = (∇̂⊗N̂) u, t = C g, v = (∇̂⊗N̂)ᵀ t.  Ev/Ed: per-direction global
+    value/derivative matrices (x first); coeff6: six q-grids
+    [xx, yy, zz, xy, xz, yz] (``dealii_asm_tpu/ops/tensorops.py:190-226``)."""
+    a = axis_matmul(u_grid, Ev[0], 2)    # x values
+    d1 = axis_matmul(u_grid, Ed[0], 2)   # x derivatives
+    b = axis_matmul(a, Ev[1], 1)
+    c = axis_matmul(a, Ed[1], 1)
+    e = axis_matmul(d1, Ev[1], 1)
+    gz = axis_matmul(b, Ed[2], 0)
+    gy = axis_matmul(c, Ev[2], 0)
+    gx = axis_matmul(e, Ev[2], 0)
+    cxx, cyy, czz, cxy, cxz, cyz = coeff6
+    tx = cxx * gx + cxy * gy + cxz * gz
+    ty = cxy * gx + cyy * gy + cyz * gz
+    tz = cxz * gx + cyz * gy + czz * gz
+    w1 = axis_matmul(tz, Ed[2].T, 0)
+    w2 = axis_matmul(ty, Ev[2].T, 0)
+    w3 = axis_matmul(tx, Ev[2].T, 0)
+    r12 = axis_matmul(w1, Ev[1].T, 1) + axis_matmul(w2, Ed[1].T, 1)
+    r3 = axis_matmul(w3, Ev[1].T, 1)
+    return axis_matmul(r12, Ev[0].T, 2) + axis_matmul(r3, Ed[0].T, 2)
 
 
 def banded_offsets(N: int, bandwidth: int, periodic: bool) -> list[int]:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.lagrange import gauss_lobatto_points, lagrange_values
 from .tensorops import axis_matmul
 
@@ -40,8 +40,8 @@ class TwoLevelTransfer(nn.Module):
     ``P1d`` (optional): per-direction NumPy interpolation matrices, by
     default built here (``interop.py`` passes the JAX ones)."""
 
-    def __init__(self, coarse, fine, dtype=torch.float64, device="cpu",
-                 P1d=None):
+    def __init__(self, coarse, fine, dtype=torch.float64,
+                 device=DEFAULT_DEVICE, P1d=None):
         super().__init__()
         self.coarse = coarse
         self.fine = fine

@@ -1,15 +1,23 @@
 """Additive Schwarz preconditioner with FDM local solves (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/precond/asm.py::ASMPreconditioner`` for
-element-centric overlap-1 patches on uniform Cartesian meshes, in its
-``global_fdm`` form (``asm.py:287-313``, ``_vmult_global_fdm`` :527).  The
-multiplicity weights (none/pre/post/symm) and the Dirichlet masks are
-separable per axis, so they fold into per-axis vectors (``fin``/``fout``).
+element-centric overlap-1 patches on structured meshes, in two forms:
 
-Setup is O(N_d) per axis: the tables come straight from the per-coordinate
-1D eigenproblems (``precond/fdm.py::percoord_eigendecomposition``); no
-per-patch collection, index table or dense inverse is built.  The apply is
-kernel B (``kernels/fdm_patch.py``).
+- ``ASMPreconditioner``, uniform Cartesian meshes: the ``global_fdm`` form
+  (``asm.py:287-313``, ``_vmult_global_fdm`` :527), whose tables come
+  straight from the per-coordinate 1D eigenproblems
+  (``precond/fdm.py::percoord_eigendecomposition``) in O(N_d) per axis; the
+  apply is kernel B (``kernels/fdm_patch.py``).
+- ``CellASMPreconditioner``, deformed meshes whose 1D patch matrices do not
+  factor per coordinate (``asm.py:188-217``, ``:320-343``, ``:611-628``): one
+  eigen-table per cell and direction, deduplicated by key, and the apply as
+  batched per-cell (m × m) products in plain torch, the JAX ``_fdm_apply``
+  form (``asm.py:466-490``).  The JAX package applies these tables in XLA,
+  not in a Pallas kernel.
+
+In both, the multiplicity weights (none/pre/post/symm) and the Dirichlet
+masks are separable per axis on the lattice, so they fold into per-axis
+vectors (``fin``/``fout``).
 """
 
 from __future__ import annotations
@@ -18,11 +26,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.fdm_patch import FDMTables, fdm_patch
-from ..ops.laplace import check_structured_cartesian
-from ..ops.tensorops import fdm_direction_transform
-from .fdm import percoord_eigendecomposition
+from ..ops.laplace import check_structured_3d
+from ..ops.lattice import cells_to_grid_sliced, grid_to_cells_sliced
+from ..ops.tensorops import fdm_direction_transform, outer_grid
+from .fdm import (FDMCollection, batched_generalized_eigh,
+                  fdm_1d_matrices_batched, percoord_eigendecomposition)
 
 _FOLD_EXPONENTS = {"none": (0.0, 0.0), "pre": (1.0, 0.0),
                    "post": (0.0, 1.0), "symm": (0.5, 0.5)}
@@ -38,6 +48,26 @@ def axis_weight(n_nodes: int, n_cells: int, degree: int) -> np.ndarray:
     return 1.0 / counts
 
 
+def _check_options(weighting_type: str, n_overlap: int) -> None:
+    if weighting_type not in _FOLD_EXPONENTS:
+        raise NotImplementedError(
+            f"weighting {weighting_type!r} is not ported yet "
+            "(RAS: ROADMAP item 10)")
+    if n_overlap != 1:
+        raise NotImplementedError(
+            f"n overlap {n_overlap}: the port has overlap 1 only "
+            "(ROADMAP item 10)")
+
+
+def _axis_folds(dofs, weighting_type: str, d: int):
+    """(fin, fout) of direction d: free mask times the 1D multiplicity
+    weight to the power the weighting gives each side."""
+    a_in, a_out = _FOLD_EXPONENTS[weighting_type]
+    free = dofs.free_1d(d)
+    w = axis_weight(dofs.nodes_per_dim[d], dofs.mesh.n_cells[d], dofs.degree)
+    return free * w ** a_in, free * w ** a_out
+
+
 class ASMPreconditioner(nn.Module):
     """Element-centric overlap-1 additive Schwarz with FDM local solves.
 
@@ -49,17 +79,12 @@ class ASMPreconditioner(nn.Module):
     is_symmetric = True
 
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
-                 dtype=torch.float64, device="cpu", percoord=None):
+                 dtype=torch.float64, device=DEFAULT_DEVICE, percoord=None):
         super().__init__()
-        if weighting_type not in _FOLD_EXPONENTS:
-            raise NotImplementedError(
-                f"weighting {weighting_type!r} is not ported yet "
-                "(RAS: ROADMAP item 10)")
-        if n_overlap != 1:
-            raise NotImplementedError(
-                f"n overlap {n_overlap}: the port has overlap 1 only "
-                "(ROADMAP item 10)")
-        check_structured_cartesian(dofs)
+        _check_options(weighting_type, n_overlap)
+        check_structured_3d(dofs)
+        if dofs.mesh.transform is not None:
+            raise ValueError("a deformed mesh takes CellASMPreconditioner")
         self.dofs = dofs
         self.dim = dofs.mesh.dim
         self.degree = dofs.degree
@@ -73,17 +98,13 @@ class ASMPreconditioner(nn.Module):
             percoord = percoord_eigendecomposition(mesh, p, n_overlap)
         self.percoord = [(np.asarray(V, np.float64), np.asarray(l, np.float64))
                          for V, l in percoord]
-        a_in, a_out = _FOLD_EXPONENTS[weighting_type]
         names = ("V", "lam", "fin", "fout", "G", "Gt")
         lam_flat = []
         for d in range(self.dim):
             V, lam = self.percoord[d]
-            N = dofs.nodes_per_dim[d]
-            free = dofs.free_1d(d)
-            w = axis_weight(N, mesh.n_cells[d], p)
-            fin = free * w ** a_in
-            fout = free * w ** a_out
-            G = fdm_direction_transform(V, N, p, n_overlap, False)
+            fin, fout = _axis_folds(dofs, weighting_type, d)
+            G = fdm_direction_transform(V, dofs.nodes_per_dim[d], p,
+                                        n_overlap, False)
             for name, arr in zip(names, (V, lam, fin, fout, G * fin[None, :],
                                          (G * fout[None, :]).T)):
                 self.register_buffer(f"{name}{d}", self._tensor(arr))
@@ -111,6 +132,103 @@ class ASMPreconditioner(nn.Module):
         if src.dtype == self.dtype:
             return fdm_patch(src, self.tables)
         return fdm_patch(src.to(self.dtype), self.tables).to(src.dtype)
+
+    def forward(self, src):
+        return self.vmult(src)
+
+
+def element_fdm_collection(mesh, degree: int,
+                           n_overlap: int = 1) -> FDMCollection:
+    """Per-direction eigen-tables of the element patches of every cell,
+    deduplicated by key (``asm.py:188-217`` with the batched builder of
+    ``_dedup_collection``): the keys are the rounded harmonic patch extents
+    [lower, own, upper] and the two neighbour flags."""
+    extents = mesh.harmonic_patch_extents(degree + 1)  # (C, dim, 3)
+    nbr = mesh.neighbors()
+    keys = np.concatenate([np.round(extents, 12),
+                           (nbr[:, :, 0:1] >= 0).astype(np.float64),
+                           (nbr[:, :, 1:2] >= 0).astype(np.float64)], axis=2)
+    eigvecs, eigvals = [], []
+    ids = np.zeros(keys.shape[:2], dtype=np.int32)
+    for d in range(mesh.dim):
+        uniq, inv = np.unique(keys[:, d, :], axis=0, return_inverse=True)
+        ids[:, d] = np.asarray(inv).reshape(-1)
+        M, K = fdm_1d_matrices_batched(degree, n_overlap, uniq[:, 0:3],
+                                       uniq[:, 3] > 0.5, uniq[:, 4] > 0.5)
+        lam, V = batched_generalized_eigh(K, M)
+        eigvecs.append(V)
+        eigvals.append(lam)
+    return FDMCollection(eigvecs, eigvals, ids)
+
+
+def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor):
+    """Batched tensor-product patch inverses: u (C, m, m, m) as [z, y, x],
+    V[d] (C, m, m) as [node, mode] per direction (x first), inv_denom
+    (C, m, m, m) the reciprocal eigenvalue sums."""
+    Vx, Vy, Vz = V
+    u = torch.einsum("czyx,cxk->czyk", u, Vx)
+    u = torch.einsum("czyx,cyk->czkx", u, Vy)
+    u = torch.einsum("czyx,czk->ckyx", u, Vz)
+    u = u * inv_denom
+    u = torch.einsum("czyk,cxk->czyx", u, Vx)
+    u = torch.einsum("czkx,cyk->czyx", u, Vy)
+    return torch.einsum("ckyx,czk->czyx", u, Vz)
+
+
+class CellASMPreconditioner(nn.Module):
+    """Element-centric overlap-1 additive Schwarz with per-cell FDM local
+    solves, for deformed meshes.
+
+    ``collection`` (optional): the NumPy ``FDMCollection`` (eigvecs[d]
+    (U_d, m, m), eigvals[d] (U_d, m), ids (C, dim)); by default it is built
+    here (``interop.py`` passes the JAX one).
+    """
+
+    def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
+                 dtype=torch.float64, device=DEFAULT_DEVICE, collection=None):
+        super().__init__()
+        _check_options(weighting_type, n_overlap)
+        check_structured_3d(dofs)
+        self.dofs = dofs
+        self.dim = dofs.mesh.dim
+        self.degree = dofs.degree
+        self.weighting_type = weighting_type
+        self.is_symmetric = weighting_type in ("none", "symm")
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        mesh = dofs.mesh
+        if collection is None:
+            collection = element_fdm_collection(mesh, self.degree, n_overlap)
+        self.collection = collection
+        ids = np.asarray(collection.ids)
+        lams = []
+        for d in range(self.dim):
+            V = np.asarray(collection.eigvecs[d], np.float64)[ids[:, d]]
+            self.register_buffer(f"V{d}", self._tensor(V))
+            lams.append(self._tensor(
+                np.asarray(collection.eigvals[d], np.float64)[ids[:, d]]))
+        lx, ly, lz = lams
+        self.register_buffer("inv_denom", 1.0 / (
+            lz[:, :, None, None] + ly[:, None, :, None] + lx[:, None, None, :]))
+        folds = [_axis_folds(dofs, weighting_type, d) for d in range(self.dim)]
+        for k, name in enumerate(("fin", "fout")):
+            self.register_buffer(name, outer_grid(
+                [self._tensor(f[k]) for f in folds]))
+        self.grid_shape = tuple(reversed(dofs.nodes_per_dim))
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(a), dtype=self.dtype,
+                            device=self.device)
+
+    def vmult(self, src: torch.Tensor) -> torch.Tensor:
+        """x·w → element windows → ⊗Vᵀ → 1/Σλ → ⊗V → overlap-add → ·w."""
+        x = src.to(self.dtype).reshape(self.grid_shape) * self.fin
+        p, m = self.degree, self.degree + 1
+        W = grid_to_cells_sliced(x, p).reshape(-1, m, m, m)
+        y = cell_fdm_apply(W, [self.V0, self.V1, self.V2], self.inv_denom)
+        y = cells_to_grid_sliced(y.reshape(-1, m ** 3), self.dofs.mesh.n_cells,
+                                 p) * self.fout
+        return y.reshape(-1).to(src.dtype)
 
     def forward(self, src):
         return self.vmult(src)

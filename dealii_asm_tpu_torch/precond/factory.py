@@ -1,19 +1,21 @@
 """JSON-driven preconditioner factory (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, FDM
-(element-centric overlap 1), AMG (the dense direct coarse solve) and
+(element-centric overlap 1; per-coordinate tables on Cartesian meshes,
+per-cell tables on deformed ones), AMG (the dense direct coarse solve) and
 Chebyshev, with the reference's defaults.  On CUDA, every Chebyshev level
-around an FDM preconditioner gets the fused smoother step (kernel C); there
-is no size gate and no fallback.  Other types raise NotImplementedError
+around a Cartesian FDM preconditioner gets the fused smoother step (kernel
+C); there is no size gate and no fallback.  Other types raise NotImplementedError
 naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+from ..kernels.banded_laplace import BandedTables
 from ..kernels.smoother_step import smoother_step
 from ..solvers.chebyshev import ChebyshevPreconditioner
 from ..utils.config import get_child, get_param
-from .asm import ASMPreconditioner
+from .asm import ASMPreconditioner, CellASMPreconditioner
 from .multigrid import DirectCoarseSolver
 
 
@@ -32,10 +34,13 @@ def _noop_log(msg=""):
 
 
 def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
-    """Attach kernel C as the smoother's fused step on CUDA levels whose
-    inner preconditioner is the FDM Schwarz apply (``factory.py:51-90``
-    without the chain kernel and without the TPU's size gate)."""
-    if op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner):
+    """Attach kernel C as the smoother's fused step on Cartesian CUDA levels
+    whose inner preconditioner is the per-coordinate FDM Schwarz apply
+    (``factory.py:34-44``, without the chain kernel and without the TPU's
+    size gate).  A deformed level has no banded tables and no kernel B
+    tables, so it keeps the unfused step, as in the JAX package."""
+    if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
+            or not isinstance(op.tables, BandedTables)):
         return
     if inner.dtype != op.dtype:
         raise TypeError(f"operator {op.dtype} and FDM {inner.dtype} differ")
@@ -108,6 +113,7 @@ def _create_fdm(op, params: dict, log):
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
     log(f"    - weighting type:         {weighting}\n")
-    return ASMPreconditioner(op.dofs, n_overlap=n_overlap,
-                             weighting_type=weighting, dtype=op.dtype,
-                             device=op.device)
+    cls = (ASMPreconditioner if op.dofs.mesh.transform is None
+           else CellASMPreconditioner)
+    return cls(op.dofs, n_overlap=n_overlap, weighting_type=weighting,
+               dtype=op.dtype, device=op.device)

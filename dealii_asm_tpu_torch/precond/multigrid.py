@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.laplace import LaplaceOperator
 
 
@@ -23,9 +23,14 @@ class DirectCoarseSolver:
     Stands in for the reference's AMG on the coarsest level (as in the JAX
     package).  The matrix is the port's own float64 operator applied to unit
     vectors (identity rows and columns at constrained nodes); it is inverted
-    in float64 and cast to ``dtype``."""
+    in float64 and cast to ``dtype``.  On a deformed mesh that operator takes
+    its default mapping degree min(p, 3), as the JAX package's assembly does
+    (``fem/assemble.py:34-36``): 1 on a Q1 coarse level, whatever degree the
+    level operators map with."""
 
-    def __init__(self, dofs, dtype=torch.float64, device="cpu"):
+    def __init__(self, dofs, dtype=torch.float64, device=DEFAULT_DEVICE):
+        # assembled and inverted on the host on purpose: the coarse matrix is
+        # small, and NumPy inverts it in float64; only Ainv goes to ``device``
         op = LaplaceOperator(dofs, dtype=torch.float64, device="cpu")
         n = dofs.n_dofs
         eye = torch.eye(n, dtype=torch.float64)

@@ -15,12 +15,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from .krylov import IterationNumberControl, cg
 
 EIG_CG_N_ITERATIONS = 40  # deal.II's eig_cg_n_iterations
 
 
-def eig_initial_guess(n_dofs: int, constrained_mask=None, device="cpu"):
+def eig_initial_guess(n_dofs: int, constrained_mask=None,
+                      device=DEFAULT_DEVICE):
     """deal.II's deterministic start vector: i % 11, mean removed, zero at
     constrained rows; float64."""
     v = (np.arange(n_dofs) % 11).astype(np.float64)
@@ -39,7 +41,7 @@ class EigenvalueInfo:
 
 def estimate_eigenvalues(A, n_dofs: int, M=None, constrained_mask=None,
                          algorithm: str = "lanczos",
-                         device="cpu") -> EigenvalueInfo:
+                         device=DEFAULT_DEVICE) -> EigenvalueInfo:
     """Largest eigenvalue of M⁻¹A from the float64 i%11 vector, by 40
     Lanczos-CG or power iterations; returns (λ̂, 1.2·λ̂) as the reference
     prints them."""
@@ -75,7 +77,7 @@ class ChebyshevPreconditioner:
                  polynomial_type="1st kind",
                  eigenvalues: EigenvalueInfo | None = None,
                  constrained_mask=None, ev_algorithm="lanczos",
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.A = A
         self.M = M
         self.degree = int(degree)

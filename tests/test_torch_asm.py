@@ -49,7 +49,8 @@ def test_fdm_apply_matches_jax_global_fdm(p, wt):
     jasm = JaxASM(jdofs, n_overlap=1, weighting_type=wt, dtype=jnp.float64)
     assert jasm.global_fdm is not None
     ref = np.asarray(jasm.vmult(jnp.asarray(x)))
-    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64)
+    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64,
+                             device="cpu")
     assert asm.is_symmetric == (wt in ("none", "symm"))
     assert _rel(asm.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
 
@@ -66,7 +67,8 @@ def test_fdm_apply_matches_fdm_slab_kernel(cells, p, wt):
         dofs.n_dofs).astype(np.float32)
     jasm = JaxASM(jdofs, n_overlap=1, weighting_type=wt, dtype=jnp.float32)
     ref = np.asarray(FDMSlabKernel(jasm).apply(jnp.asarray(x), interpret=True))
-    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32)
+    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32,
+                             device="cpu")
     got = asm.vmult(torch.as_tensor(x))
     assert got.dtype == torch.float32
     assert _rel(got.numpy(), ref) < 1e-5
@@ -77,7 +79,8 @@ def test_tables_match_jax(p, wt):
     """Per-coordinate eigen-tables and folded transforms, entry by entry."""
     jdofs, dofs = _dofs((4, 3, 2), p)
     jasm = JaxASM(jdofs, n_overlap=1, weighting_type=wt, dtype=jnp.float64)
-    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64)
+    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64,
+                             device="cpu")
     for d in range(3):
         np.testing.assert_array_equal(asm.percoord[d][0],
                                       np.asarray(jasm.percoord[d][0]))
@@ -92,7 +95,7 @@ def test_interop_drives_port_with_jax_tables():
     jdofs, dofs = _dofs((3, 2, 3), 3)
     jasm = JaxASM(jdofs, n_overlap=1, weighting_type="symm", dtype=jnp.float64)
     x = torch.as_tensor(np.random.default_rng(6).standard_normal(dofs.n_dofs))
-    via_jax = asm_from_jax(jasm).vmult(x)
+    via_jax = asm_from_jax(jasm, device="cpu").vmult(x)
     ref = np.asarray(jasm.vmult(jnp.asarray(x.numpy())))
     assert _rel(via_jax.numpy(), ref) < 1e-12
 
@@ -100,6 +103,71 @@ def test_interop_drives_port_with_jax_tables():
 def test_unported_options_raise():
     dofs = DofHandler(StructuredMesh(3, (2, 2, 2)), 3)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ASMPreconditioner(dofs, weighting_type="ras")
+        ASMPreconditioner(dofs, weighting_type="ras", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ASMPreconditioner(dofs, n_overlap=2)
+        ASMPreconditioner(dofs, n_overlap=2, device="cpu")
+
+
+# -- deformed meshes: per-cell FDM tables (CellASMPreconditioner) ------------
+# float64 against the JAX ASMPreconditioner on a Kershaw mesh (eps 0.3): rel
+# 1e-12, the same per-cell transforms summed in another order (observed
+# ~1e-15).
+
+
+def _kershaw_dofs(cells, p):
+    from dealii_asm_tpu.mesh.transforms import kershaw_transform as jk
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+
+    return (JaxDofHandler(JaxMesh(3, cells, transform=jk(0.3, 0.3)), p),
+            DofHandler(StructuredMesh(3, cells,
+                                      transform=kershaw_transform(0.3, 0.3)),
+                       p))
+
+
+@pytest.mark.parametrize("p,cells", [(1, (4, 3, 3)), (2, (3, 3, 2)),
+                                     (4, (2, 3, 2))])
+@pytest.mark.parametrize("wt", ["symm", "none"])
+def test_cell_fdm_apply_matches_jax_on_kershaw(p, cells, wt):
+    from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
+
+    jdofs, dofs = _kershaw_dofs(cells, p)
+    jasm = JaxASM(jdofs, n_overlap=1, weighting_type=wt, dtype=jnp.float64)
+    assert jasm.global_fdm is None  # the tables do not factor per coordinate
+    x = np.random.default_rng(30 + p).standard_normal(dofs.n_dofs)
+    ref = np.asarray(jasm.vmult(jnp.asarray(x)))
+    asm = CellASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64,
+                                device="cpu")
+    assert asm.is_symmetric
+    assert _rel(asm.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
+    # its eigen-tables are the JAX collection's, entry by entry
+    np.testing.assert_array_equal(asm.collection.ids, jasm.collection.ids)
+    for d in range(3):
+        np.testing.assert_allclose(asm.collection.eigvals[d],
+                                   np.asarray(jasm.collection.eigvals[d]),
+                                   rtol=1e-13, atol=0)
+        np.testing.assert_allclose(np.abs(asm.collection.eigvecs[d]),
+                                   np.abs(np.asarray(
+                                       jasm.collection.eigvecs[d])),
+                                   rtol=0, atol=1e-12)
+
+
+def test_cell_fdm_interop_and_float32():
+    """asm_from_jax carries the JAX per-cell collection; the float32 apply
+    agrees with the float64 one to float32 rounding (rel 1e-5)."""
+    from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
+
+    jdofs, dofs = _kershaw_dofs((3, 2, 3), 3)
+    jasm = JaxASM(jdofs, n_overlap=1, weighting_type="symm",
+                  dtype=jnp.float64)
+    x = np.random.default_rng(40).standard_normal(dofs.n_dofs)
+    via_jax = asm_from_jax(jasm, device="cpu")
+    assert isinstance(via_jax, CellASMPreconditioner)
+    ref = np.asarray(jasm.vmult(jnp.asarray(x)))
+    assert _rel(via_jax.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
+    asm32 = CellASMPreconditioner(dofs, weighting_type="symm",
+                                  dtype=torch.float32, device="cpu")
+    y32 = asm32.vmult(torch.as_tensor(x, dtype=torch.float32))
+    assert y32.dtype == torch.float32
+    assert _rel(y32.numpy(), ref) < 1e-5
+    with pytest.raises(ValueError, match="CellASMPreconditioner"):
+        ASMPreconditioner(dofs, device="cpu")

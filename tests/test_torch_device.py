@@ -44,6 +44,13 @@ p["print timing"] = False
 p["solver"]["best of"] = 1
 r = run_config(p, log=lambda *a: None, device="cpu")
 assert r["converged"] and r["it"] == 4, r["it"]
+with open("experiments/e2e_kershaw_q4.json") as f:
+    p = json.load(f)
+p["n refinements"] = 0
+p["print timing"] = False
+p["solver"]["best of"] = 1
+r = run_config(p, log=lambda *a: None, device="cpu")
+assert r["converged"] and r["it"] == 28, r["it"]
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "dealii_asm_tpu")]
 assert not loaded, loaded
@@ -52,12 +59,33 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_no_jax_and_runs_the_slice():
-    """Neither jax nor any module of the JAX package is imported."""
+    """Neither jax nor any module of the JAX package is imported, on the
+    flagship's path and on the Kershaw path."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", NO_JAX_SLICE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` the port targets cuda: on a machine without a GPU
+    it raises the resolve_device error and runs nothing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-fallback check needs none")
+    assert port_device.DEFAULT_DEVICE == "cuda"
+    params = {"dim": 3, "degree": 2, "n refinements": 1,
+              "mesh": {"name": "kershaw", "eps": 0.3},
+              "solver": {"type": "CG"}, "preconditioner": {"type": "Identity"}}
+    logged = []
+    with pytest.raises(RuntimeError, match="is_available"):
+        run_config(params, log=logged.append)
+    assert logged == []  # nothing was built, so nothing ran on the CPU
+    dofs = DofHandler(StructuredMesh(3, (1, 1, 1)), 2)
+    for make in (lambda: LaplaceOperator(dofs),
+                 lambda: ASMPreconditioner(dofs)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
 
 
 def test_cuda_device_raises_without_gpu():
@@ -75,8 +103,9 @@ def test_cuda_device_raises_without_gpu():
 
 def test_kernel_wrappers_take_plain_path_on_cpu():
     dofs = DofHandler(StructuredMesh(3, (2, 3, 2)), 3)
-    op = LaplaceOperator(dofs, dtype=torch.float32)
-    asm = ASMPreconditioner(dofs, weighting_type="symm", dtype=torch.float32)
+    op = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type="symm", dtype=torch.float32,
+                            device="cpu")
     x = torch.as_tensor(np.random.default_rng(9).standard_normal(dofs.n_dofs),
                         dtype=torch.float32)
     before = launch_counts()
@@ -89,7 +118,7 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
 
 def test_kernel_wrappers_reject_other_devices():
     dofs = DofHandler(StructuredMesh(3, (1, 1, 1)), 2)
-    op = LaplaceOperator(dofs, dtype=torch.float32)
+    op = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
     with pytest.raises(TypeError, match="unsupported device"):
         banded_laplace(torch.empty(dofs.n_dofs, device="meta"), op.tables)
 

@@ -48,7 +48,8 @@ def test_f64_apply_matches_jax_banded(cells, p):
     x = np.random.default_rng(1).standard_normal(dofs.n_dofs)
     ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float64,
                                 kernel="banded").vmult(jnp.asarray(x)))
-    got = LaplaceOperator(dofs, dtype=torch.float64).vmult(torch.as_tensor(x))
+    got = LaplaceOperator(dofs, dtype=torch.float64,
+                          device="cpu").vmult(torch.as_tensor(x))
     assert got.dtype == torch.float64
     assert _rel(got.numpy(), ref) < 1e-12
 
@@ -60,7 +61,8 @@ def test_f32_apply_matches_jax_pallas_f32(cells, p):
     jop = JaxLaplace(jdofs, dtype=jnp.float32, kernel="pallas-f32")
     assert jop._f32_pallas is not None  # the TPU kernel, interpret mode
     ref = np.asarray(jop.vmult(jnp.asarray(x)))
-    got = LaplaceOperator(dofs, dtype=torch.float32).vmult(torch.as_tensor(x))
+    got = LaplaceOperator(dofs, dtype=torch.float32,
+                          device="cpu").vmult(torch.as_tensor(x))
     assert got.dtype == torch.float32
     assert _rel(got.numpy(), ref) < 1e-5
 
@@ -72,7 +74,7 @@ def test_residual_and_identity_rows(dtype, tol):
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.standard_normal(dofs.n_dofs), dtype=dtype)
     b = torch.as_tensor(rng.standard_normal(dofs.n_dofs), dtype=dtype)
-    op = LaplaceOperator(dofs, dtype=dtype)
+    op = LaplaceOperator(dofs, dtype=dtype, device="cpu")
     v = op.vmult(x)
     mask = torch.as_tensor(dofs.boundary_mask)
     assert torch.equal(v[mask], x[mask])  # constrained rows act as identity
@@ -87,7 +89,8 @@ def test_mixed_dtype_apply_matches_jax():
     x = np.random.default_rng(4).standard_normal(dofs.n_dofs)
     x[dofs.boundary_mask] = 0.0
     ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float32).vmult(jnp.asarray(x)))
-    got = LaplaceOperator(dofs, dtype=torch.float32).vmult(torch.as_tensor(x))
+    got = LaplaceOperator(dofs, dtype=torch.float32,
+                          device="cpu").vmult(torch.as_tensor(x))
     assert got.dtype == torch.float64
     assert _rel(got.numpy(), ref) < 1e-5
 
@@ -98,12 +101,13 @@ def test_assemble_rhs_matches_jax(cells, p):
     rhs_fn, dbc_fn = make_rhs_and_dbc("constant", 3)
     ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float64).assemble_rhs(
         rhs_fn, dirichlet=dbc_fn))
-    got = LaplaceOperator(dofs, dtype=torch.float64).assemble_rhs("constant")
+    got = LaplaceOperator(dofs, dtype=torch.float64,
+                          device="cpu").assemble_rhs("constant")
     assert _rel(got.numpy(), ref) < 1e-13
 
 
 def test_assemble_rhs_other_functions_not_ported():
-    op = LaplaceOperator(_dofs((2, 2, 2), 2)[1])
+    op = LaplaceOperator(_dofs((2, 2, 2), 2)[1], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         op.assemble_rhs("sin-mp")
 
@@ -113,7 +117,7 @@ def test_setup_tables_match_jax(cells, p):
     """The port's jax-free NumPy setup gives the JAX tables entry by entry."""
     jdofs, dofs = _dofs(cells, p)
     jop = JaxLaplace(jdofs, dtype=jnp.float64, kernel="banded")
-    op = LaplaceOperator(dofs, dtype=torch.float64)
+    op = LaplaceOperator(dofs, dtype=torch.float64, device="cpu")
     for d in range(3):
         np.testing.assert_array_equal(op.M1d_global[d],
                                       np.asarray(jop.M1d_global[d]))
@@ -129,8 +133,8 @@ def test_interop_drives_port_with_jax_tables():
     jdofs, dofs = _dofs((2, 3, 2), 3)
     jop = JaxLaplace(jdofs, dtype=jnp.float64, kernel="banded")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(dofs.n_dofs))
-    via_jax = laplace_from_jax(jop).vmult(x)
-    own = LaplaceOperator(dofs).vmult(x)
+    via_jax = laplace_from_jax(jop, device="cpu").vmult(x)
+    own = LaplaceOperator(dofs, device="cpu").vmult(x)
     assert torch.equal(via_jax, own)
 
 

@@ -39,8 +39,9 @@ def _setup(cells, p, wt, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(dofs.n_dofs).astype(np.float32)
     b = rng.standard_normal(dofs.n_dofs).astype(np.float32)
-    op = LaplaceOperator(dofs, dtype=torch.float32)
-    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32)
+    op = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32,
+                            device="cpu")
     out = smoother_step(torch.as_tensor(x), torch.as_tensor(b), op.tables,
                         asm.tables, 0.37)
     return JaxDofHandler(JaxMesh(3, cells), p), dofs, x, b, out.numpy()
@@ -76,8 +77,9 @@ def test_step_matches_tpu_kernel_interpret(cells, p, wt):
 
 def test_cpu_tensor_takes_plain_path_without_launching():
     dofs = DofHandler(StructuredMesh(3, (2, 2, 3)), 2)
-    op = LaplaceOperator(dofs, dtype=torch.float32)
-    asm = ASMPreconditioner(dofs, weighting_type="symm", dtype=torch.float32)
+    op = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type="symm", dtype=torch.float32,
+                            device="cpu")
     rng = np.random.default_rng(7)
     x = torch.as_tensor(rng.standard_normal(dofs.n_dofs), dtype=torch.float32)
     b = torch.as_tensor(rng.standard_normal(dofs.n_dofs), dtype=torch.float32)

@@ -102,7 +102,8 @@ def test_solve_dispatch_cg_only():
 def test_eig_initial_guess_matches_jax():
     jdofs, dofs = _dofs((2, 3, 2), 2)
     ref = np.asarray(jcheb.eig_initial_guess(jdofs.n_dofs, jdofs.boundary_mask))
-    got = chebyshev.eig_initial_guess(dofs.n_dofs, dofs.boundary_mask)
+    got = chebyshev.eig_initial_guess(dofs.n_dofs, dofs.boundary_mask,
+                                      device="cpu")
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -116,15 +117,15 @@ def test_eigenvalue_estimates_match_jax(dtype, tol, wt):
                  JaxASM(jdofs, n_overlap=1, weighting_type=wt, dtype=jdt))
     if dtype == "float64":  # the exact banded float64 path (see laplace tests)
         jop = JaxLaplace(jdofs, dtype=jdt, kernel="banded")
-    op = LaplaceOperator(dofs, dtype=tdt)
-    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=tdt)
+    op = LaplaceOperator(dofs, dtype=tdt, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=tdt, device="cpu")
     algo = "lanczos" if wt == "symm" else "power iteration"
     ref = jcheb.ChebyshevPreconditioner(
         jop.vmult, jasm.vmult, jdofs.n_dofs, degree=1,
         constrained_mask=jdofs.boundary_mask, ev_algorithm=algo)
     got = chebyshev.ChebyshevPreconditioner(
         op.vmult, asm.vmult, dofs.n_dofs, degree=1,
-        constrained_mask=dofs.boundary_mask, ev_algorithm=algo)
+        constrained_mask=dofs.boundary_mask, ev_algorithm=algo, device="cpu")
     for attr in ("min_eigenvalue_estimate", "max_eigenvalue_estimate"):
         a = getattr(got.eigenvalues, attr)
         b = getattr(ref.eigenvalues, attr)
@@ -138,15 +139,15 @@ def test_chebyshev_apply_matches_jax(kind, degree):
     jdofs, dofs = _dofs((3, 2, 3), 3)
     jop = JaxLaplace(jdofs, dtype=jnp.float64, kernel="banded")
     jasm = JaxASM(jdofs, n_overlap=1, weighting_type="symm", dtype=jnp.float64)
-    op = LaplaceOperator(dofs)
-    asm = ASMPreconditioner(dofs, weighting_type="symm")
+    op = LaplaceOperator(dofs, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type="symm", device="cpu")
     ev = jcheb.EigenvalueInfo(1.6, 1.92, 40)
     ref = jcheb.ChebyshevPreconditioner(jop.vmult, jasm.vmult, dofs.n_dofs,
                                         degree=degree, polynomial_type=kind,
                                         eigenvalues=ev)
     got = chebyshev.ChebyshevPreconditioner(
         op.vmult, asm.vmult, dofs.n_dofs, degree=degree, polynomial_type=kind,
-        eigenvalues=chebyshev.EigenvalueInfo(1.6, 1.92, 40))
+        eigenvalues=chebyshev.EigenvalueInfo(1.6, 1.92, 40), device="cpu")
     rng = np.random.default_rng(8)
     b = rng.standard_normal(dofs.n_dofs)
     x = rng.standard_normal(dofs.n_dofs)

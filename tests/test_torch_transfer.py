@@ -49,7 +49,7 @@ def test_transfer_matches_jax(coarse, fine):
     jc, c = _dofs(*coarse)
     jf, f = _dofs(*fine)
     jtr = JaxTransfer(jc, jf, dtype=jnp.float64)
-    tr = TwoLevelTransfer(c, f, dtype=torch.float64)
+    tr = TwoLevelTransfer(c, f, dtype=torch.float64, device="cpu")
     for d in range(3):
         np.testing.assert_array_equal(tr.P1d[d], np.asarray(jtr.P1d[d]))
     rng = np.random.default_rng(11)
@@ -59,7 +59,7 @@ def test_transfer_matches_jax(coarse, fine):
                 jtr.prolongate(jnp.asarray(uc))) < 1e-13
     assert _rel(tr.restrict(torch.as_tensor(rf)).numpy(),
                 jtr.restrict(jnp.asarray(rf))) < 1e-13
-    via = transfer_from_jax(jtr)
+    via = transfer_from_jax(jtr, device="cpu")
     assert torch.equal(via.restrict(torch.as_tensor(rf)),
                        tr.restrict(torch.as_tensor(rf)))
 
@@ -76,7 +76,7 @@ def test_p_sequence_matches_jax(kind):
 def test_direct_coarse_solver_matches_jax(dtype):
     jd, d = _dofs((1, 1, 1), 4)
     ref = JaxDirect(jd, dtype=getattr(jnp, dtype))
-    got = DirectCoarseSolver(d, dtype=getattr(torch, dtype))
+    got = DirectCoarseSolver(d, dtype=getattr(torch, dtype), device="cpu")
     tol = 1e-10 if dtype == "float64" else 1e-5
     assert _rel(got.Ainv.numpy(), np.asarray(ref.Ainv)) < tol
     b = np.random.default_rng(12).standard_normal(d.n_dofs)
@@ -90,14 +90,62 @@ def test_vcycle_matches_jax():
            "preconditioner": {"type": "FDM", "weighting type": "symm"}}
     (jc, c), (jf, f) = _dofs((1, 1, 1), 3), _dofs((2, 2, 2), 3)
     jops = [JaxLaplace(x, dtype=jnp.float32) for x in (jc, jf)]
-    ops = [LaplaceOperator(x, dtype=torch.float32) for x in (c, f)]
+    ops = [LaplaceOperator(x, dtype=torch.float32, device="cpu")
+           for x in (c, f)]
     jmg = JaxMultigrid([o.vmult for o in jops], [jax_create(jops[1], cfg)],
                        [JaxTransfer(jc, jf, dtype=jnp.float32)],
                        JaxDirect(jc, dtype=jnp.float32).vmult)
     mg = Multigrid(ops, [create_system_preconditioner(ops[1], cfg)],
-                   [TwoLevelTransfer(c, f, dtype=torch.float32)],
-                   DirectCoarseSolver(c, dtype=torch.float32).vmult)
+                   [TwoLevelTransfer(c, f, dtype=torch.float32, device="cpu")],
+                   DirectCoarseSolver(c, dtype=torch.float32,
+                                      device="cpu").vmult)
     b = np.random.default_rng(13).standard_normal(f.n_dofs).astype(np.float32)
     b[f.boundary_mask] = 0.0
     assert _rel(mg.vmult(torch.as_tensor(b)).numpy(),
                 jmg.vmult(jnp.asarray(b))) < 1e-5
+
+
+def _kershaw_dofs(cells, p):
+    from dealii_asm_tpu.mesh.transforms import kershaw_transform as jk
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+
+    return (JaxDofHandler(JaxMesh(3, cells, transform=jk(0.3, 0.3)), p),
+            DofHandler(StructuredMesh(3, cells,
+                                      transform=kershaw_transform(0.3, 0.3)),
+                       p))
+
+
+@pytest.mark.parametrize("cells,p", [((3, 3, 3), 1), ((2, 2, 2), 2)])
+def test_direct_coarse_solver_matches_jax_on_kershaw(cells, p):
+    """The coarse matrix maps with min(p, 3) (1 on a Q1 coarse level), as the
+    JAX assembly does, whatever the level operators use: rel 1e-10."""
+    jd, d = _kershaw_dofs(cells, p)
+    ref = JaxDirect(jd, dtype=jnp.float64)
+    got = DirectCoarseSolver(d, dtype=torch.float64, device="cpu")
+    assert _rel(got.Ainv.numpy(), np.asarray(ref.Ainv)) < 1e-10
+    if p < 3:  # a mapping of degree 3 gives another matrix
+        other = LaplaceOperator(d, mapping_degree=3, device="cpu")
+        e = torch.zeros(d.n_dofs, dtype=torch.float64)
+        j = int(np.flatnonzero(~d.boundary_mask)[0])
+        e[j] = 1.0
+        A = np.linalg.inv(got.Ainv.numpy())
+        assert _rel(other.vmult(e).numpy(), A[:, j]) > 1e-6
+
+
+def test_ph_junction_transfers_match_jax():
+    """The ph hierarchy's junction on a Kershaw mesh: an h-transfer at degree
+    1, then p-transfers 1 → 2 → 4 on the fine mesh (rel 1e-13)."""
+    pairs = [(((2, 2, 2), 1), ((4, 4, 4), 1)),
+             (((4, 4, 4), 1), ((4, 4, 4), 2)),
+             (((4, 4, 4), 2), ((4, 4, 4), 4))]
+    rng = np.random.default_rng(14)
+    for coarse, fine in pairs:
+        (jc, c), (jf, f) = _kershaw_dofs(*coarse), _kershaw_dofs(*fine)
+        jtr = JaxTransfer(jc, jf, dtype=jnp.float64)
+        tr = TwoLevelTransfer(c, f, dtype=torch.float64, device="cpu")
+        uc = rng.standard_normal(c.n_dofs)
+        rf = rng.standard_normal(f.n_dofs)
+        assert _rel(tr.prolongate(torch.as_tensor(uc)).numpy(),
+                    jtr.prolongate(jnp.asarray(uc))) < 1e-13
+        assert _rel(tr.restrict(torch.as_tensor(rf)).numpy(),
+                    jtr.restrict(jnp.asarray(rf))) < 1e-13
