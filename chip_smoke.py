@@ -16,6 +16,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    - E (float64 and float32) on Kershaw meshes (eps 0.3, mapping degree 3)
      at 2^3, 12^3 and 48^3 cells Q4 and at p = 1 and 2, in its vmult and
      residual modes, repeated runs bit-identical;
+   - F (float64 and float32) on the balanced hyperball (mapping degree 2)
+     at 32, 2,048 and 131,072 cells Q4 and at p = 1 and 2 (2,048 cells), in
+     its vmult and residual modes, repeated runs bit-identical;
 4. the flagship solve (experiments/e2e_aniso_q4.json, 64^3 cells Q4,
    16,974,593 DoFs) through run_config on the card: converged in 5 CG
    iterations, with A, B and C launched on that path; and the same config at
@@ -24,7 +27,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    7,189,057 DoFs) through run_config on the card: converged in 55 CG
    iterations, with E launched in both precisions on that path; and the same
    config at 1 refinement on the card against the plain CPU path (38
-   iterations on the CPU, the card within one: see ``run_solve``).
+   iterations on the CPU, the card within one: see ``run_solve``);
+6. the hyperball solve (experiments/e2e_ball_q4.json, 131,072 cells Q4,
+   8,438,273 DoFs) through run_config on the card: converged in 7 CG
+   iterations, with F launched in both precisions on that path, and two
+   applies of its V-cycle bit-identical; and the same config at 1 refinement
+   on the card against the plain CPU path (6 iterations on the CPU, the card
+   within one).
 The launch counts of each solve are set to 0 just before it and read just
 after.  The last two lines of standard output are the kernel table as JSON
 and the result line {"ok": true, "device": {...}}.  Without a GPU, or
@@ -45,6 +54,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(HERE, "experiments", "e2e_aniso_q4.json")
 KERSHAW = os.path.join(HERE, "experiments", "e2e_kershaw_q4.json")
+BALL = os.path.join(HERE, "experiments", "e2e_ball_q4.json")
 SEED = 20261016
 
 # kernel (its launch-count key) -> (source, TPU kernel it replaces)
@@ -61,11 +71,20 @@ KERNELS = {
                            "dealii_asm_tpu/ops/pallas/merged_vmult.py:339"),
     "merged_laplace_f32": ("dealii_asm_tpu_torch/kernels/csrc/merged_laplace.cu",
                            "dealii_asm_tpu/ops/pallas/merged_vmult.py:339"),
+    "lanes_laplace_f64": ("dealii_asm_tpu_torch/kernels/csrc/lanes_laplace.cu",
+                          "dealii_asm_tpu/ops/pallas/lanes_vmult.py:263"),
+    "lanes_laplace_f32": ("dealii_asm_tpu_torch/kernels/csrc/lanes_laplace.cu",
+                          "dealii_asm_tpu/ops/pallas/lanes_vmult.py:263"),
 }
 # the solve whose run_config launches each kernel
 FLAGSHIP_KERNELS = ("banded_laplace_f32", "banded_laplace_f64", "fdm_patch",
                     "smoother_step")
 KERSHAW_KERNELS = ("merged_laplace_f64", "merged_laplace_f32")
+BALL_KERNELS = ("lanes_laplace_f64", "lanes_laplace_f32")
+# the largest shape each kernel's solve gives it (the kernels line reports it)
+MAIN_SHAPE = dict.fromkeys(FLAGSHIP_KERNELS, "64^3 cells Q4")
+MAIN_SHAPE.update(dict.fromkeys(KERSHAW_KERNELS, "48^3 cells Q4"))
+MAIN_SHAPE.update(dict.fromkeys(BALL_KERNELS, "131072 cells Q4"))
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense, at the full 700 W):
 # device memory 3.35 TB/s; float32 67 TFLOP/s and float64 34 TFLOP/s outside
@@ -83,9 +102,13 @@ PEAK_FLOP_S = {4: 67e12, 8: 34e12}
 #   kernel may not be worse than twice the plain float32 version (or 1e-4).
 # - E float64: 1e-12 and float32: 1e-5, the same products summed in another
 #   order (the plain version's dense q-space axis products add zeros too).
+# - F float64: 1e-12 and float32: 1e-5, the same products summed in another
+#   order (the plain version contracts with einsums and scatters with
+#   index_add_).
 BOUNDS = {"banded_laplace_f32": 1e-5, "banded_laplace_f64": 1e-12,
           "fdm_patch": 1e-4, "smoother_step": 1e-4,
-          "merged_laplace_f64": 1e-12, "merged_laplace_f32": 1e-5}
+          "merged_laplace_f64": 1e-12, "merged_laplace_f32": 1e-5,
+          "lanes_laplace_f64": 1e-12, "lanes_laplace_f32": 1e-5}
 
 
 class Failed(Exception):
@@ -170,6 +193,20 @@ def merged_work(cells: int, n: int, p: int, itemsize: int,
     vectors = (3 if residual else 2) * n
     return ((vectors + 6 * cells * m ** 3 + 4 * m * m) * itemsize,
             2.0 * cells * (16 * m ** 4 + 9 * m ** 3) + 8.0 * n)
+
+
+def lanes_work(cells: int, n: int, p: int, itemsize: int,
+               residual: bool = False) -> tuple:
+    """(bytes, flop) of one kernel-F apply: u (and rhs) in, v out, the int32
+    gather table and the (C, 6, Q) coefficients; per cell 16 m^4 + 9 m^3
+    multiply-adds, and the summation of the cell results onto the DoFs.
+    The scratch and the CSR the kernel also moves are not the function's
+    inputs or outputs."""
+    m = p + 1
+    vectors = (3 if residual else 2) * n
+    return ((vectors + 6 * cells * m ** 3 + 4 * m * m) * itemsize
+            + 4 * cells * m ** 3,
+            2.0 * cells * (16 * m ** 4 + 9 * m ** 3) + cells * m ** 3)
 
 
 def check_kernels(cells_list, degrees_small, results):
@@ -318,8 +355,66 @@ def check_merged(cells_list, degrees_small, results):
             torch.cuda.empty_cache()
 
 
+def check_lanes(refinements, degrees_small, results):
+    """Phase 3: kernel F (both precisions) vs its plain version on the
+    balanced hyperball."""
+    import numpy as np
+    import torch
+
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.kernels.lanes_laplace import (
+        lanes_laplace, lanes_laplace_plain)
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+    from dealii_asm_tpu_torch.ops.laplace_general import \
+        GeneralLaplaceOperator
+
+    rng = np.random.default_rng(SEED + 2)
+    dev = "cuda"
+    meshes = [hyper_ball_balanced(3)]
+    while len(meshes) <= max(refinements):
+        meshes.append(meshes[-1].refine())
+    small = refinements[min(1, len(refinements) - 1)]
+    cases = [(r, 4) for r in refinements] + [(small, p) for p in degrees_small]
+    for r, p in cases:
+        mesh = meshes[r]
+        dofs = GeneralDofHandler(mesh, p)
+        n, c = dofs.n_dofs, mesh.n_cells_total
+        reps = 20 if n > 1_000_000 else 100
+        x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        b64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        tag = f"{c} cells Q{p}, {n} DoFs"
+        for dt, name in ((torch.float64, "lanes_laplace_f64"),
+                         (torch.float32, "lanes_laplace_f32")):
+            op = GeneralLaplaceOperator(dofs, dtype=dt, device=dev)
+            x, b = x64.to(dt), b64.to(dt)
+            for rhs in (None, b):
+                got = lanes_laplace(x, op.tables, rhs)
+                again = lanes_laplace(x, op.tables, rhs)
+                ref = lanes_laplace_plain(x, op.tables, rhs)
+                err = rel_err(got, ref)
+                what = "residual" if rhs is not None else "vmult"
+                same = torch.equal(got, again)
+                print(f"  F {name} {what:8s} {tag}: max rel err {err:.3e} "
+                      f"(bound {BOUNDS[name]:g}); repeated runs "
+                      f"{'bit-identical' if same else 'DIFFER'}")
+                if not err <= BOUNDS[name] or not same:
+                    raise Failed(f"{name} {what} {tag}: {err:.3e}, "
+                                 f"bit-identical={same}")
+            abs_err = float((lanes_laplace(x, op.tables)
+                             - lanes_laplace_plain(x, op.tables)).abs().max())
+            k_ms, p_ms = in_turns(lambda: lanes_laplace_plain(x, op.tables),
+                                  lambda: lanes_laplace(x, op.tables), reps)
+            print_time(tag, n, k_ms, p_ms)
+            work = lanes_work(c, n, p, x.element_size())
+            results.setdefault(name, {})[tag] = (
+                abs_err, k_ms, p_ms, bound(*work, x.element_size()))
+            del op
+            torch.cuda.empty_cache()
+
+
 def run_solve(path: str, n_small: int, it_small: int, it_full: int,
-              n_dofs: int, kernels, counts, slack: int = 0):
+              n_dofs: int, kernels, counts, slack: int = 0,
+              check_vcycle: bool = False):
     """Phase 4 or 5: one config through run_config on the card, first at
     ``n_small`` refinements against the plain CPU path, then at full size
     with the launch counts set to 0 just before and read just after.
@@ -331,7 +426,9 @@ def run_solve(path: str, n_small: int, it_small: int, it_full: int,
     one iteration: its last residual lies within 10% of the stopping
     threshold, and float32 rounding of the level operators alone (kernel E
     or its plain version) moves it by more (``python -m
-    dealii_asm_tpu_torch.probe sensitivity``)."""
+    dealii_asm_tpu_torch.probe sensitivity``); so may the ball's.  With
+    ``check_vcycle`` two applies of the solve's preconditioner to the same
+    vector must agree bitwise."""
     import torch
 
     from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -396,6 +493,16 @@ def run_solve(path: str, n_small: int, it_small: int, it_full: int,
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise Failed(f"kernels not launched on the {name} path: {missing}")
+    if check_vcycle:
+        # the V-cycle sums in a fixed order everywhere: two applies agree
+        # bitwise
+        b = torch.sin(torch.arange(n_dofs, dtype=torch.float64,
+                                   device="cuda"))
+        pre = res["preconditioner"]
+        same = torch.equal(pre.vmult(b), pre.vmult(b))
+        print(f"  two V-cycle applies {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise Failed(f"{name}: repeated V-cycle applies differ")
     return res
 
 
@@ -453,12 +560,16 @@ def main(argv=None) -> int:
         print("== kernels vs plain PyTorch on the card")
         check_kernels([2] if args.quick else [2, 16, 64], [2, 4], results)
         check_merged([2] if args.quick else [2, 12, 48], [1, 2], results)
+        check_lanes([0] if args.quick else [0, 2, 4], [1, 2], results)
         if not args.quick:
             print("== flagship solve on the card")
             run_solve(FLAGSHIP, 2, 4, 5, 16_974_593, FLAGSHIP_KERNELS, counts)
             print("== Kershaw solve on the card")
             run_solve(KERSHAW, 1, 38, 55, 7_189_057, KERSHAW_KERNELS, counts,
                       slack=1)
+            print("== hyperball solve on the card")
+            run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
+                      check_vcycle=True)
     except Failed as e:
         print(f"FAIL: {e}")
         return 1
@@ -469,12 +580,12 @@ def main(argv=None) -> int:
     table = []
     for name, (src, repl) in KERNELS.items():
         # each kernel at the largest shape its solve gives it
-        big = "48^3 cells Q4" if name in KERSHAW_KERNELS else "64^3 cells Q4"
-        tag = [k for k in results[name] if k.startswith(big)][0]
+        tag = [k for k in results[name] if k.startswith(MAIN_SHAPE[name])][0]
         abs_err, k_ms, p_ms, (b_ms, b_by) = results[name][tag]
         # no single PyTorch call computes any of these functions on these
         # inputs (node-type dependent banded factors, per-cell patch
-        # solves, per-quadrature-point coefficients): library_ms is null
+        # solves, per-quadrature-point coefficients; a sparse product would
+        # need the assembled matrix, another input): library_ms is null
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": repl, "launches": counts[name],
                       "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,

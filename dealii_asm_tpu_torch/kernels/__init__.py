@@ -10,6 +10,8 @@ LAUNCHES = {
     "banded_laplace_f32": 0,
     "banded_laplace_f64": 0,
     "fdm_patch": 0,
+    "lanes_laplace_f32": 0,
+    "lanes_laplace_f64": 0,
     "merged_laplace_f32": 0,
     "merged_laplace_f64": 0,
     "smoother_step": 0,

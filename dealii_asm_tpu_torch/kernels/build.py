@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc into a plain-C shared library).
 
-The sources under ``csrc/`` are compiled for Hopper (``sm_90a``) at first use
-into ``dealii_asm_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and flags, and loaded with ``ctypes``.  A later process with the same sources
+The sources under ``csrc/`` are compiled for Hopper (``sm_90a``) at first use,
+one nvcc process per source, all started together, then linked into
+``dealii_asm_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags, and loaded with ``ctypes``.  A later process with the same sources
 reuses the library.  No fallback: a missing ``nvcc`` or a failed compile
 raises.
 """
@@ -20,10 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "merged_laplace.cu",
-           "smoother_step.cu")
+SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "lanes_laplace.cu",
+           "merged_laplace.cu", "smoother_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libdealii_asm_kernels.so"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -35,11 +36,14 @@ _BANDED = [_P, _P, _P] + [_P] * 6 + [_I] * 5 + [_P]
 _FDM = [_P, _P, _P] + [_P] * 12 + [_I] * 4
 _STEP = [_P, _P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
 _MERGED = [_P] * 6 + [_I] * 5 + [_P]
+_LANES = [_P] * 9 + [_I] * 4 + [_P]
 SIGNATURES = {
     "dat_banded_laplace_f32": _BANDED,
     "dat_banded_laplace_f64": _BANDED,
     "dat_fdm_patch_f32": _FDM + [ctypes.c_float, _I, _P],
     "dat_fdm_patch_f64": _FDM + [ctypes.c_double, _I, _P],
+    "dat_lanes_laplace_f32": _LANES,
+    "dat_lanes_laplace_f64": _LANES,
     "dat_merged_laplace_f32": _MERGED,
     "dat_merged_laplace_f64": _MERGED,
     "dat_smoother_step_f32": _STEP + [ctypes.c_float, _P],
@@ -77,6 +81,30 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc_all(nvcc: str, work: Path, verbose: bool) -> None:
+    """Compile every source to an object file, one nvcc per source, all
+    started together; raise with the compiler output of any that fails."""
+    extra = ["--ptxas-options=-v"] if verbose else []
+    procs = []
+    for s in SOURCES:
+        log = open(work / f"{s}.log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-I", str(CSRC),
+               "-o", str(work / f"{s}.o"), str(CSRC / s)]
+        procs.append((s, log, subprocess.Popen(cmd, stdout=log,
+                                               stderr=subprocess.STDOUT)))
+    failed = []
+    for s, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        text = (work / f"{s}.log").read_text()
+        if rc != 0:
+            failed.append(f"{s} ({rc}):\n{text}")
+        elif verbose:
+            print(text)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists."""
     global last_build_seconds
@@ -86,21 +114,21 @@ def build(verbose: bool = False) -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _nvcc_all(nvcc, work, verbose)
+        tmp = work / LIB_NAME
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(work / f"{s}.o") for s in SOURCES]],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib
 
 

@@ -1,12 +1,14 @@
 // Shared declarations of the port's hand-written Hopper kernels.
 //
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
-// fdm_patch.cu, merged_laplace.cu); smoother_step.cu composes the host
+// fdm_patch.cu, lanes_laplace.cu, merged_laplace.cu; the last two share the
+// per-cell body of sumfac_cell.cuh); smoother_step.cu composes the host
 // launchers of the first two.  Every
 // extern "C" entry returns cudaGetLastError() after its launches, so the
 // Python wrapper can raise on a refused launch.
 //
-// Layout: vectors are flat lexicographic grids (Nz, Ny, Nx), x fastest.
+// Layout: the lattice kernels' vectors are flat lexicographic grids
+// (Nz, Ny, Nx), x fastest; kernel F's are numbered by its DoF table.
 #pragma once
 
 #include <cuda_runtime.h>

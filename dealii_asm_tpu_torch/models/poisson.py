@@ -2,12 +2,14 @@
 
 Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
 structured families ``hypercube``, ``anisotropy`` and the deformed
-``kershaw``/``kershaw-mp`` on one device: mesh → float64 operator →
-multigrid (h, p, hp or ph levels, float32 by default) behind a precision
-adapter → CG with deal.II's ReductionControl.  The result dict carries the
+``kershaw``/``kershaw-mp``, and the unstructured ``hyperball``, on one
+device: mesh → float64 operator → multigrid (h, p, hp or ph levels,
+float32 by default) behind a precision adapter → CG with deal.II's
+ReductionControl.  The result dict carries the
 same keys (``it``, ``converged``, ``time``, ``solution`` ...), plus
-``setup_time`` and the first solve's ``residuals``.  Options outside the
-slice raise NotImplementedError naming their ROADMAP item.
+``setup_time``, the first solve's ``residuals`` and the ``preconditioner``.
+Options outside the slice raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -20,10 +22,14 @@ import torch
 from ..device import (DEFAULT_DEVICE, LEVEL_DTYPE, OUTER_DTYPE,
                       assert_no_tf32, resolve_device, synchronize)
 from ..fem.dofs import DofHandler
+from ..fem.general_dofs import GeneralDofHandler
 from ..mesh.grid import StructuredMesh
 from ..mesh.transforms import kershaw_transform
+from ..mesh.unstructured import hyper_ball_balanced
 from ..ops.laplace import LaplaceOperator
+from ..ops.laplace_general import GeneralLaplaceOperator
 from ..ops.transfer import TwoLevelTransfer, p_sequence
+from ..ops.transfer_general import GeneralTwoLevelTransfer
 from ..precond.adapter import PrecisionAdapter
 from ..precond.factory import create_system_preconditioner
 from ..precond.multigrid import Multigrid
@@ -63,6 +69,59 @@ class MeshFamily:
     def n_levels(self) -> int:
         return self.n_refinements + 1
 
+    def dofs_at(self, refinement: int, degree: int) -> DofHandler:
+        return DofHandler(self.mesh_at(refinement), degree)
+
+    def operator(self, dofs, dtype, device) -> LaplaceOperator:
+        return LaplaceOperator(dofs, dtype=dtype, device=device,
+                               mapping_degree=self.mapping_degree)
+
+    def transfer(self, coarse, fine, dtype, device) -> TwoLevelTransfer:
+        return TwoLevelTransfer(coarse, fine, dtype=dtype, device=device)
+
+
+class GeneralMeshFamily:
+    """A refinement family of unstructured meshes (the hyperball), each
+    refined once from the previous one (``poisson.py:60-85``).  Meshes and
+    DoF handlers are built once and shared by the outer operator and the
+    levels.  The operators take the general default mapping degree (2 on
+    the curved ball), whatever the config's "mapping degree", as in the JAX
+    package."""
+
+    def __init__(self, dim: int, coarse_mesh, n_refinements: int, name: str):
+        self.dim = dim
+        self.n_refinements = n_refinements
+        self.name = name
+        self._meshes = [coarse_mesh]
+        self._dofs = {}
+
+    def mesh_at(self, refinement: int):
+        while len(self._meshes) <= refinement:
+            self._meshes.append(self._meshes[-1].refine())
+        return self._meshes[refinement]
+
+    @property
+    def fine_mesh(self):
+        return self.mesh_at(self.n_refinements)
+
+    @property
+    def n_levels(self) -> int:
+        return self.n_refinements + 1
+
+    def dofs_at(self, refinement: int, degree: int) -> GeneralDofHandler:
+        key = (refinement, degree)
+        if key not in self._dofs:
+            self._dofs[key] = GeneralDofHandler(self.mesh_at(refinement),
+                                                degree)
+        return self._dofs[key]
+
+    def operator(self, dofs, dtype, device) -> GeneralLaplaceOperator:
+        return GeneralLaplaceOperator(dofs, dtype=dtype, device=device)
+
+    def transfer(self, coarse, fine, dtype, device) -> GeneralTwoLevelTransfer:
+        return GeneralTwoLevelTransfer(coarse, fine, dtype=dtype,
+                                       device=device)
+
 
 def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
     dim = int(get_param(params, "dim", 2))
@@ -95,8 +154,12 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
         raise NotImplementedError(
             f"mesh {name!r} is not ported yet (ROADMAP item 9)")
     if name == "hyperball":
-        raise NotImplementedError(
-            "mesh 'hyperball' is not ported yet (ROADMAP item 13)")
+        if dim != 3:
+            raise NotImplementedError(
+                f"dim {dim}: the port runs 3D meshes only (ROADMAP item 9)")
+        log("- Create mesh: hyperball\n")
+        return GeneralMeshFamily(dim, hyper_ball_balanced(dim), n_refine,
+                                 name)
     raise ValueError(f"Geometry with the name <{name}> is not known!")
 
 
@@ -134,20 +197,17 @@ def mg_level_layout(precon_p: dict, family, fe_degree: int,
     return levels, intermediate
 
 
-def _build_multigrid(params: dict, family: MeshFamily, fe_degree: int, log,
+def _build_multigrid(params: dict, family, fe_degree: int, log,
                      dtype, device) -> Multigrid:
     levels, intermediate = mg_level_layout(params, family, fe_degree, log)
     ops, dofs_list = [], []
     for r, d in levels:
-        mesh = family.mesh_at(r)
-        dofs = DofHandler(mesh, d)
-        ops.append(LaplaceOperator(dofs, dtype=dtype, device=device,
-                                   mapping_degree=family.mapping_degree))
+        dofs = family.dofs_at(r, d)
+        ops.append(family.operator(dofs, dtype, device))
         dofs_list.append(dofs)
-        log(f"- Create operator:\n  - n cells:          {mesh.n_cells_total}\n"
-            f"  - n dofs:           {dofs.n_dofs}\n")
-    transfers = [TwoLevelTransfer(dofs_list[i], dofs_list[i + 1], dtype=dtype,
-                                  device=device)
+        log(f"- Create operator:\n  - n cells:          "
+            f"{dofs.mesh.n_cells_total}\n  - n dofs:           {dofs.n_dofs}\n")
+    transfers = [family.transfer(dofs_list[i], dofs_list[i + 1], dtype, device)
                  for i in range(len(levels) - 1)]
 
     smoother_p = get_child(params, "mg smoother")
@@ -210,9 +270,8 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     fe_degree = int(get_param(params, "degree", 1))
     family = make_mesh_family(params, log)
     mesh = family.fine_mesh
-    dofs = DofHandler(mesh, fe_degree)
-    op = LaplaceOperator(dofs, dtype=dtype, device=device,
-                         mapping_degree=family.mapping_degree)
+    dofs = family.dofs_at(family.n_refinements, fe_degree)
+    op = family.operator(dofs, dtype, device)
     b = op.assemble_rhs(get_param(params, "rhs", "constant"))
 
     table.add_value("name", get_param(params, "name", family.name))
@@ -292,5 +351,6 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         "setup_time": setup_time,
         "residuals": result.residuals,
         "solution": result.x,
+        "preconditioner": precon,
         "table": table,
     }

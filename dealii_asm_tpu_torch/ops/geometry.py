@@ -7,7 +7,9 @@ isoparametric Q_m mapping.  The JAX package runs the contraction through XLA
 on the host (``merged_det_coeff`` :96-128); here it runs in torch float64 on
 the operator's device, where the (C, Q, 3, 3) tables of a 48³ Q4 mesh
 (about 1 GB each) are cheap.  The mapping's support points come from the
-mesh's NumPy transform on the host.
+mesh on the host: a deformed ``StructuredMesh`` (its NumPy transform) or an
+``UnstructuredMesh`` (its chart or projected multilinear blend); both give
+``jacobian_factors(mapping_degree, q)``.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ def inv_det_3x3(J: torch.Tensor):
 
 def compute_geometry(mesh, n_q_1d: int, mapping_degree: int,
                      device) -> MergedGeometry:
-    """Merged geometry of a 3D mesh; raises ValueError on a non-positive
-    Jacobian determinant."""
+    """Merged geometry of a 3D structured or unstructured mesh; raises
+    ValueError on a non-positive Jacobian determinant."""
     if mesh.dim != 3:
         raise NotImplementedError(
             f"dim {mesh.dim}: the port runs 3D meshes only (ROADMAP item 9)")
@@ -58,13 +60,13 @@ def compute_geometry(mesh, n_q_1d: int, mapping_degree: int,
     wq = torch.as_tensor(tensor_weights([s.w] * 3), device=device)
     B, sp = mesh.jacobian_factors(mapping_degree, s.q)
     B = torch.as_tensor(B, device=device)
-    sp = torch.as_tensor(np.ascontiguousarray(sp), device=device)
+    sp = torch.tensor(np.asarray(sp), device=device)  # copies: sp is read-only
     J = torch.einsum("qld,cle->cqed", B, sp)
     det, Jinv = inv_det_3x3(J)
     del J
     if bool((det <= 0).any()):
         raise ValueError(
-            "mesh transform produced non-positive Jacobian determinants")
+            "the mesh mapping produced non-positive Jacobian determinants")
     jxw = wq[None, :] * det
     coeff = (Jinv @ Jinv.transpose(-1, -2)) * jxw[:, :, None, None]
     return MergedGeometry(coeff, jxw)

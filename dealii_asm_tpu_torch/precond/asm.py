@@ -137,20 +137,21 @@ class ASMPreconditioner(nn.Module):
         return self.vmult(src)
 
 
-def element_fdm_collection(mesh, degree: int,
+def element_fdm_collection(extents: np.ndarray, has_lower: np.ndarray,
+                           has_upper: np.ndarray, degree: int,
                            n_overlap: int = 1) -> FDMCollection:
     """Per-direction eigen-tables of the element patches of every cell,
     deduplicated by key (``asm.py:188-217`` with the batched builder of
-    ``_dedup_collection``): the keys are the rounded harmonic patch extents
-    [lower, own, upper] and the two neighbour flags."""
-    extents = mesh.harmonic_patch_extents(degree + 1)  # (C, dim, 3)
-    nbr = mesh.neighbors()
+    ``_dedup_collection``): the keys are the rounded harmonic patch
+    ``extents`` (C, dim, 3) [lower, own, upper] and the neighbour flags
+    ``has_lower``/``has_upper`` (C, dim)."""
     keys = np.concatenate([np.round(extents, 12),
-                           (nbr[:, :, 0:1] >= 0).astype(np.float64),
-                           (nbr[:, :, 1:2] >= 0).astype(np.float64)], axis=2)
+                           np.asarray(has_lower, np.float64)[:, :, None],
+                           np.asarray(has_upper, np.float64)[:, :, None]],
+                          axis=2)
     eigvecs, eigvals = [], []
     ids = np.zeros(keys.shape[:2], dtype=np.int32)
-    for d in range(mesh.dim):
+    for d in range(keys.shape[1]):
         uniq, inv = np.unique(keys[:, d, :], axis=0, return_inverse=True)
         ids[:, d] = np.asarray(inv).reshape(-1)
         M, K = fdm_1d_matrices_batched(degree, n_overlap, uniq[:, 0:3],
@@ -159,6 +160,21 @@ def element_fdm_collection(mesh, degree: int,
         eigvecs.append(V)
         eigvals.append(lam)
     return FDMCollection(eigvecs, eigvals, ids)
+
+
+def cell_fdm_tables(collection: FDMCollection, dtype, device):
+    """Per-cell tables of a deduplicated collection on ``device``: V[d]
+    (C, m, m) per direction (x first) and inv_denom (C, m, m, m), the
+    reciprocal eigenvalue sums, all in ``dtype``."""
+    ids = np.asarray(collection.ids)
+    V, lams = [], []
+    for d in range(ids.shape[1]):
+        for tabs, out in ((collection.eigvecs, V), (collection.eigvals, lams)):
+            out.append(torch.tensor(np.asarray(tabs[d], np.float64)[ids[:, d]],
+                                    dtype=dtype, device=device))
+    lx, ly, lz = lams
+    return V, 1.0 / (lz[:, :, None, None] + ly[:, None, :, None]
+                     + lx[:, None, None, :])
 
 
 def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor):
@@ -198,18 +214,15 @@ class CellASMPreconditioner(nn.Module):
         self.device = resolve_device(device)
         mesh = dofs.mesh
         if collection is None:
-            collection = element_fdm_collection(mesh, self.degree, n_overlap)
+            nbr = mesh.neighbors()
+            collection = element_fdm_collection(
+                mesh.harmonic_patch_extents(self.degree + 1),
+                nbr[:, :, 0] >= 0, nbr[:, :, 1] >= 0, self.degree, n_overlap)
         self.collection = collection
-        ids = np.asarray(collection.ids)
-        lams = []
-        for d in range(self.dim):
-            V = np.asarray(collection.eigvecs[d], np.float64)[ids[:, d]]
-            self.register_buffer(f"V{d}", self._tensor(V))
-            lams.append(self._tensor(
-                np.asarray(collection.eigvals[d], np.float64)[ids[:, d]]))
-        lx, ly, lz = lams
-        self.register_buffer("inv_denom", 1.0 / (
-            lz[:, :, None, None] + ly[:, None, :, None] + lx[:, None, None, :]))
+        V, inv_denom = cell_fdm_tables(collection, dtype, self.device)
+        for d, Vd in enumerate(V):
+            self.register_buffer(f"V{d}", Vd)
+        self.register_buffer("inv_denom", inv_denom)
         folds = [_axis_folds(dofs, weighting_type, d) for d in range(self.dim)]
         for k, name in enumerate(("fin", "fout")):
             self.register_buffer(name, outer_grid(

@@ -2,8 +2,8 @@
 
 Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, FDM
 (element-centric overlap 1; per-coordinate tables on Cartesian meshes,
-per-cell tables on deformed ones), AMG (the dense direct coarse solve) and
-Chebyshev, with the reference's defaults.  On CUDA, every Chebyshev level
+per-cell tables on deformed and unstructured ones), AMG (the dense direct
+coarse solve) and Chebyshev, with the reference's defaults.  On CUDA, every Chebyshev level
 around a Cartesian FDM preconditioner gets the fused smoother step (kernel
 C); there is no size gate and no fallback.  Other types raise NotImplementedError
 naming their ROADMAP item.
@@ -11,11 +11,13 @@ naming their ROADMAP item.
 
 from __future__ import annotations
 
+from ..fem.general_dofs import GeneralDofHandler
 from ..kernels.banded_laplace import BandedTables
 from ..kernels.smoother_step import smoother_step
 from ..solvers.chebyshev import ChebyshevPreconditioner
 from ..utils.config import get_child, get_param
 from .asm import ASMPreconditioner, CellASMPreconditioner
+from .asm_general import GeneralASMPreconditioner
 from .multigrid import DirectCoarseSolver
 
 
@@ -38,7 +40,8 @@ def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
     whose inner preconditioner is the per-coordinate FDM Schwarz apply
     (``factory.py:34-44``, without the chain kernel and without the TPU's
     size gate).  A deformed level has no banded tables and no kernel B
-    tables, so it keeps the unfused step, as in the JAX package."""
+    tables, so it keeps the unfused step, as does an unstructured level, as
+    in the JAX package."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
             or not isinstance(op.tables, BandedTables)):
         return
@@ -113,7 +116,13 @@ def _create_fdm(op, params: dict, log):
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
     log(f"    - weighting type:         {weighting}\n")
-    cls = (ASMPreconditioner if op.dofs.mesh.transform is None
-           else CellASMPreconditioner)
+    # dispatch on the DoF handler first (``factory.py:283-291``): the
+    # unstructured mesh has no ``transform``
+    if isinstance(op.dofs, GeneralDofHandler):
+        cls = GeneralASMPreconditioner
+    elif op.dofs.mesh.transform is None:
+        cls = ASMPreconditioner
+    else:
+        cls = CellASMPreconditioner
     return cls(op.dofs, n_overlap=n_overlap, weighting_type=weighting,
                dtype=op.dtype, device=op.device)

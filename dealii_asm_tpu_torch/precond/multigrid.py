@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..fem.general_dofs import GeneralDofHandler
 from ..ops.laplace import LaplaceOperator
+from ..ops.laplace_general import GeneralLaplaceOperator
 
 
 class DirectCoarseSolver:
@@ -26,12 +28,17 @@ class DirectCoarseSolver:
     in float64 and cast to ``dtype``.  On a deformed mesh that operator takes
     its default mapping degree min(p, 3), as the JAX package's assembly does
     (``fem/assemble.py:34-36``): 1 on a Q1 coarse level, whatever degree the
-    level operators map with."""
+    level operators map with.  On an unstructured mesh (a
+    ``GeneralDofHandler``) the operator is the general one with its default
+    mapping degree, 2 on the ball (``assemble_laplace_general``,
+    ``fem/assemble.py:148-149``)."""
 
     def __init__(self, dofs, dtype=torch.float64, device=DEFAULT_DEVICE):
         # assembled and inverted on the host on purpose: the coarse matrix is
         # small, and NumPy inverts it in float64; only Ainv goes to ``device``
-        op = LaplaceOperator(dofs, dtype=torch.float64, device="cpu")
+        cls = (GeneralLaplaceOperator if isinstance(dofs, GeneralDofHandler)
+               else LaplaceOperator)
+        op = cls(dofs, dtype=torch.float64, device="cpu")
         n = dofs.n_dofs
         eye = torch.eye(n, dtype=torch.float64)
         A = torch.stack([op.vmult(eye[j]) for j in range(n)], dim=1).numpy()

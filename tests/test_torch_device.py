@@ -11,14 +11,19 @@ import torch
 
 from dealii_asm_tpu_torch import device as port_device
 from dealii_asm_tpu_torch.fem.dofs import DofHandler
+from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
 from dealii_asm_tpu_torch.kernels import build, launch_counts
 from dealii_asm_tpu_torch.kernels.banded_laplace import (banded_laplace,
                                                          banded_laplace_plain)
 from dealii_asm_tpu_torch.kernels.fdm_patch import fdm_patch, fdm_patch_plain
 from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
 from dealii_asm_tpu_torch.models.poisson import run_config
 from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+from dealii_asm_tpu_torch.ops.laplace_general import GeneralLaplaceOperator
+from dealii_asm_tpu_torch.ops.transfer_general import GeneralTwoLevelTransfer
 from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+from dealii_asm_tpu_torch.precond.asm_general import GeneralASMPreconditioner
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,6 +56,13 @@ p["print timing"] = False
 p["solver"]["best of"] = 1
 r = run_config(p, log=lambda *a: None, device="cpu")
 assert r["converged"] and r["it"] == 28, r["it"]
+with open("experiments/e2e_ball_q4.json") as f:
+    p = json.load(f)
+p["n refinements"] = 0
+p["print timing"] = False
+p["solver"]["best of"] = 1
+r = run_config(p, log=lambda *a: None, device="cpu")
+assert r["converged"] and r["it"] == 5, r["it"]
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "dealii_asm_tpu")]
 assert not loaded, loaded
@@ -60,7 +72,7 @@ print("NO_JAX_OK")
 
 def test_port_imports_no_jax_and_runs_the_slice():
     """Neither jax nor any module of the JAX package is imported, on the
-    flagship's path and on the Kershaw path."""
+    flagship's path, the Kershaw path and the ball path."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", NO_JAX_SLICE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -82,8 +94,12 @@ def test_entry_points_default_to_the_card():
         run_config(params, log=logged.append)
     assert logged == []  # nothing was built, so nothing ran on the CPU
     dofs = DofHandler(StructuredMesh(3, (1, 1, 1)), 2)
+    ball = [GeneralDofHandler(hyper_ball_balanced(3), p) for p in (1, 2)]
     for make in (lambda: LaplaceOperator(dofs),
-                 lambda: ASMPreconditioner(dofs)):
+                 lambda: ASMPreconditioner(dofs),
+                 lambda: GeneralLaplaceOperator(ball[1]),
+                 lambda: GeneralASMPreconditioner(ball[1]),
+                 lambda: GeneralTwoLevelTransfer(*ball)):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
 

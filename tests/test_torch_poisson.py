@@ -32,6 +32,8 @@ with open(os.path.join(ROOT, "experiments", "e2e_aniso_q4.json")) as _f:
     FLAGSHIP = json.load(_f)
 with open(os.path.join(ROOT, "experiments", "e2e_kershaw_q4.json")) as _f:
     KERSHAW = json.load(_f)
+with open(os.path.join(ROOT, "experiments", "e2e_ball_q4.json")) as _f:
+    BALL = json.load(_f)
 
 HYPERCUBE_Q2 = {
     "dim": 3, "degree": 2, "n refinements": 3,
@@ -73,6 +75,7 @@ def _config(name):
                           else HYPERCUBE_Q1)
     else:
         p = copy.deepcopy(KERSHAW if name.startswith("e2e_kershaw")
+                          else BALL if name.startswith("e2e_ball")
                           else FLAGSHIP)
         p["n refinements"] = int(name[-1])
     # one solve: "best of" only repeats the timed solve
@@ -143,7 +146,9 @@ def test_mg_level_layout_matches_jax(mg_type, mesh, degree, seq):
 
 
 @pytest.mark.parametrize("path,value,item", [
-    (("mesh", "name"), "hyperball", "ROADMAP item 13"),
+    # on the ball: vertex patches (the element-centric FDM is ported)
+    (("preconditioner", "mg smoother", "preconditioner", "element centric"),
+     False, "ROADMAP item 10"),
     (("mg number type",), "bfloat16", "ROADMAP item 9"),
     (("preconditioner", "mg smoother", "type"), "Relaxation",
      "ROADMAP item 9"),
@@ -153,7 +158,8 @@ def test_mg_level_layout_matches_jax(mg_type, mesh, degree, seq):
      "ras", "ROADMAP item 10"),
 ])
 def test_unported_options_raise(path, value, item):
-    params = _config("e2e_aniso_q4 n refinements 1")
+    params = _config("e2e_ball_q4 n refinements 0" if path[-1] ==
+                     "element centric" else "e2e_aniso_q4 n refinements 1")
     node = params
     for key in path[:-1]:
         node = node[key]

@@ -149,3 +149,79 @@ def test_ph_junction_transfers_match_jax():
                     jtr.prolongate(jnp.asarray(uc))) < 1e-13
         assert _rel(tr.restrict(torch.as_tensor(rf)).numpy(),
                     jtr.restrict(jnp.asarray(rf))) < 1e-13
+
+
+# -- the hyperball: gather → ⊗T1 → fixed-order scatter (GeneralTwoLevelTransfer)
+
+
+def _ball_dofs(refinements, p):
+    from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler as JaxGD
+    from dealii_asm_tpu.mesh.unstructured import hyper_ball_balanced as jball
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+
+    return (JaxGD(jball(3).refine_global(refinements), p),
+            GeneralDofHandler(hyper_ball_balanced(3).refine_global(refinements),
+                              p))
+
+
+@pytest.fixture(scope="module")
+def ball_levels():
+    """The ball's ph junction at 1 refinement: (r, p) → (JAX, port) dofs,
+    the coarse and fine meshes shared as in run_config."""
+    from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler as JaxGD
+    from dealii_asm_tpu.mesh.unstructured import hyper_ball_balanced as jball
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+
+    jm = [jball(3)]
+    m = [hyper_ball_balanced(3)]
+    jm.append(jm[0].refine())
+    m.append(m[0].refine())
+    return {(r, p): (JaxGD(jm[r], p), GeneralDofHandler(m[r], p))
+            for r, p in [(0, 1), (0, 2), (1, 1), (1, 2), (1, 4)]}
+
+
+@pytest.mark.parametrize("coarse,fine", [((0, 1), (1, 1)),   # h, p = 1
+                                         ((0, 2), (1, 2)),   # h, p = 2
+                                         ((1, 1), (1, 2)),   # p 1 → 2
+                                         ((1, 2), (1, 4))])  # p 2 → 4
+def test_general_transfer_matches_jax_on_ball(ball_levels, coarse, fine):
+    from dealii_asm_tpu.ops.transfer_general import \
+        GeneralTwoLevelTransfer as JaxGT
+    from dealii_asm_tpu_torch.interop import general_transfer_from_jax
+    from dealii_asm_tpu_torch.ops.transfer_general import \
+        GeneralTwoLevelTransfer
+
+    (jc, c), (jf, f) = ball_levels[coarse], ball_levels[fine]
+    jtr = JaxGT(jc, jf, dtype=jnp.float64)
+    tr = GeneralTwoLevelTransfer(c, f, dtype=torch.float64, device="cpu")
+    np.testing.assert_array_equal(tr.T1.numpy(), np.asarray(jtr.T1))
+    np.testing.assert_array_equal(tr.fine_lat.numpy(), np.asarray(jtr.fine_lat))
+    np.testing.assert_array_equal(tr.fine_inv_valence.numpy(),
+                                  np.asarray(jtr.fine_inv_valence))
+    rng = np.random.default_rng(15)
+    uc = rng.standard_normal(c.n_dofs)
+    rf = rng.standard_normal(f.n_dofs)
+    for t in (tr, general_transfer_from_jax(jtr, device="cpu")):
+        assert _rel(t.prolongate(torch.as_tensor(uc)).numpy(),
+                    jtr.prolongate(jnp.asarray(uc))) < 1e-13
+        assert _rel(t.restrict(torch.as_tensor(rf)).numpy(),
+                    jtr.restrict(jnp.asarray(rf))) < 1e-13
+    # restriction is the exact transpose of prolongation
+    lhs = float(tr.prolongate(torch.as_tensor(uc)) @ torch.as_tensor(rf))
+    rhs = float(torch.as_tensor(uc) @ tr.restrict(torch.as_tensor(rf)))
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_direct_coarse_solver_matches_jax_on_ball(p):
+    """The ball's coarse matrix maps with degree 2, as
+    ``assemble_laplace_general`` does: rel 1e-10."""
+    jd, d = _ball_dofs(0, p)
+    ref = JaxDirect(jd, dtype=jnp.float64)
+    got = DirectCoarseSolver(d, dtype=torch.float64, device="cpu")
+    assert _rel(got.Ainv.numpy(), np.asarray(ref.Ainv)) < 1e-10
+    b = np.random.default_rng(16).standard_normal(d.n_dofs)
+    assert _rel(got.vmult(torch.as_tensor(b)).numpy(),
+                ref.vmult(jnp.asarray(b))) < 1e-10
