@@ -19,6 +19,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    - F (float64 and float32) on the balanced hyperball (mapping degree 2)
      at 32, 2,048 and 131,072 cells Q4 and at p = 1 and 2 (2,048 cells), in
      its vmult and residual modes, repeated runs bit-identical;
+   - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4 and at p = 2
+     (16^3), Chebyshev rows of both kinds at degree 2, 3 and 4 and
+     Relaxation rows (f1 = 0), from x and from the zero guess (an x full of
+     NaN must not matter), repeated runs bit-identical; at 64^3 Q4 and
+     degree 2 also the unfused loop (kernels A and B with torch vector
+     operations) and, for Relaxation rows, two unrolled kernel-C steps,
+     timed beside D;
 4. the flagship solve (experiments/e2e_aniso_q4.json, 64^3 cells Q4,
    16,974,593 DoFs) through run_config on the card: converged in 5 CG
    iterations, with A, B and C launched on that path; and the same config at
@@ -33,7 +40,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    iterations, with F launched in both precisions on that path, and two
    applies of its V-cycle bit-identical; and the same config at 1 refinement
    on the card against the plain CPU path (6 iterations on the CPU, the card
-   within one).
+   within one);
+7. the large-scaling ladder's fdm1 rung at 6 refinements
+   (experiments/sweep_large_scaling/input_0025.json: anisotropy stretch 50,
+   64^3 cells Q4, 16,974,593 DoFs, hp-multigrid, Chebyshev-2 around FDM)
+   through run_config on the card with DEALII_ASM_TPU_CHAIN_DEGREES=2 set by
+   this script: converged in 65 CG iterations, with D and A launched on
+   that path; the same config at 2 refinements on the card (kernel D)
+   against the plain CPU path (9 iterations); and once more at full size
+   with the variable unset: 65 iterations and no launch of D;
+8. the ladder's r = 7 rung (input_0029.json, 128^3 cells Q4, 135,005,697
+   DoFs, CoarseCG coarse solve) with the variable set to 2: converged (the
+   JAX package has no count at this size); its count, setup and solve
+   seconds and peak device memory are printed.
 The launch counts of each solve are set to 0 just before it and read just
 after.  The last two lines of standard output are the kernel table as JSON
 and the result line {"ok": true, "device": {...}}.  Without a GPU, or
@@ -55,6 +74,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(HERE, "experiments", "e2e_aniso_q4.json")
 KERSHAW = os.path.join(HERE, "experiments", "e2e_kershaw_q4.json")
 BALL = os.path.join(HERE, "experiments", "e2e_ball_q4.json")
+LADDER_R6 = os.path.join(HERE, "experiments", "sweep_large_scaling",
+                         "input_0025.json")
+LADDER_R7 = os.path.join(HERE, "experiments", "sweep_large_scaling",
+                         "input_0029.json")
+CHAIN_GATE = "DEALII_ASM_TPU_CHAIN_DEGREES"
 SEED = 20261016
 
 # kernel (its launch-count key) -> (source, TPU kernel it replaces)
@@ -75,16 +99,20 @@ KERNELS = {
                           "dealii_asm_tpu/ops/pallas/lanes_vmult.py:263"),
     "lanes_laplace_f32": ("dealii_asm_tpu_torch/kernels/csrc/lanes_laplace.cu",
                           "dealii_asm_tpu/ops/pallas/lanes_vmult.py:263"),
+    "smoother_sweep": ("dealii_asm_tpu_torch/kernels/csrc/smoother_sweep.cu",
+                       "dealii_asm_tpu/ops/pallas/smoother_step.py:968"),
 }
 # the solve whose run_config launches each kernel
 FLAGSHIP_KERNELS = ("banded_laplace_f32", "banded_laplace_f64", "fdm_patch",
                     "smoother_step")
 KERSHAW_KERNELS = ("merged_laplace_f64", "merged_laplace_f32")
 BALL_KERNELS = ("lanes_laplace_f64", "lanes_laplace_f32")
+LADDER_KERNELS = ("smoother_sweep",)
 # the largest shape each kernel's solve gives it (the kernels line reports it)
 MAIN_SHAPE = dict.fromkeys(FLAGSHIP_KERNELS, "64^3 cells Q4")
 MAIN_SHAPE.update(dict.fromkeys(KERSHAW_KERNELS, "48^3 cells Q4"))
 MAIN_SHAPE.update(dict.fromkeys(BALL_KERNELS, "131072 cells Q4"))
+MAIN_SHAPE["smoother_sweep"] = "64^3 cells Q4, degree 2, from x"
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense, at the full 700 W):
 # device memory 3.35 TB/s; float32 67 TFLOP/s and float64 34 TFLOP/s outside
@@ -105,10 +133,14 @@ PEAK_FLOP_S = {4: 67e12, 8: 34e12}
 # - F float64: 1e-12 and float32: 1e-5, the same products summed in another
 #   order (the plain version contracts with einsums and scatters with
 #   index_add_).
+# - D float32: 1e-4, C's bound: each sub-step is A's and B's arithmetic
+#   against the plain composition's, as in C, and the Chebyshev rows keep
+#   the sub-steps' rounding at the size of one step's.
 BOUNDS = {"banded_laplace_f32": 1e-5, "banded_laplace_f64": 1e-12,
           "fdm_patch": 1e-4, "smoother_step": 1e-4,
           "merged_laplace_f64": 1e-12, "merged_laplace_f32": 1e-5,
-          "lanes_laplace_f64": 1e-12, "lanes_laplace_f32": 1e-5}
+          "lanes_laplace_f64": 1e-12, "lanes_laplace_f32": 1e-5,
+          "smoother_sweep": 1e-4}
 
 
 class Failed(Exception):
@@ -207,6 +239,18 @@ def lanes_work(cells: int, n: int, p: int, itemsize: int,
     return ((vectors + 6 * cells * m ** 3 + 4 * m * m) * itemsize
             + 4 * cells * m ** 3,
             2.0 * cells * (16 * m ** 4 + 9 * m ** 3) + cells * m ** 3)
+
+
+def sweep_work(cells: int, n: int, p: int, k: int, zero_x: bool) -> tuple:
+    """(bytes, flop) of one kernel-D sweep of k sub-steps in float32: x
+    (not under zero_x) and b in, x' out, the tables once; k times B's
+    operations and A's for every sub-step that applies A (all but the first
+    under zero_x)."""
+    fb, ff = fdm_work(cells, n, p, 4)
+    ab, af = banded_work(n, p, 4)
+    vectors = (2 if zero_x else 3) * n * 4
+    return (vectors + fb + ab - 4 * 4 * n,
+            k * ff + (k - 1 if zero_x else k) * af)
 
 
 def check_kernels(cells_list, degrees_small, results):
@@ -412,12 +456,128 @@ def check_lanes(refinements, degrees_small, results):
             torch.cuda.empty_cache()
 
 
-def run_solve(path: str, n_small: int, it_small: int, it_full: int,
-              n_dofs: int, kernels, counts, slack: int = 0,
-              check_vcycle: bool = False):
-    """Phase 4 or 5: one config through run_config on the card, first at
-    ``n_small`` refinements against the plain CPU path, then at full size
-    with the launch counts set to 0 just before and read just after.
+def check_sweep(cells_list, results):
+    """Phase 3: kernel D vs its plain version on Cartesian meshes, and at
+    the largest Q4 size its time beside the unfused loop and beside unrolled
+    kernel-C steps."""
+    import numpy as np
+    import torch
+
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels.banded_laplace import banded_laplace
+    from dealii_asm_tpu_torch.kernels.fdm_patch import fdm_patch
+    from dealii_asm_tpu_torch.kernels.smoother_step import smoother_step
+    from dealii_asm_tpu_torch.kernels.smoother_sweep import (
+        smoother_sweep, smoother_sweep_plain)
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+    from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+    from dealii_asm_tpu_torch.solvers.chebyshev import \
+        chebyshev_sweep_coefficients
+
+    rng = np.random.default_rng(SEED + 3)
+    dev = "cuda"
+    # the eigenvalue data of an FDM-preconditioned level (max estimate 1.2
+    # times a Lanczos estimate of 1.6, smoothing range 20)
+    mx = 1.92
+    alpha = mx / 20.0
+    theta, delta = (mx + alpha) / 2.0, (mx - alpha) / 2.0
+    omega = 2.0 / (alpha + mx)
+    rows = [(f"{kind}, degree {k}",
+             chebyshev_sweep_coefficients(k, theta, delta, kind, lam_max=mx))
+            for k in (2, 3, 4) for kind in ("1st kind", "4th kind")]
+    rows.append(("relaxation, degree 3", [(0.0, omega)] * 3))
+    name, bnd = "smoother_sweep", BOUNDS["smoother_sweep"]
+    cases = [(c, 4) for c in cells_list] + [(cells_list[0], 2)]
+    for c, p in cases:
+        dofs = DofHandler(StructuredMesh(3, (c, c, c)), p)
+        n = dofs.n_dofs
+        reps = 10 if n > 1_000_000 else 50
+        op = LaplaceOperator(dofs, dtype=torch.float32, device=dev)
+        asm = ASMPreconditioner(dofs, weighting_type="symm",
+                                dtype=torch.float32, device=dev)
+        a, f = op.tables, asm.tables
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev)
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev)
+        nan_x = torch.full_like(x, float("nan"))
+        tag = f"{c}^3 cells Q{p}, {n} DoFs"
+        for label, coefs in rows:
+            for zero_x in (False, True):
+                xin = nan_x if zero_x else x
+                got = smoother_sweep(xin, b, a, f, coefs, zero_x)
+                same = torch.equal(got, smoother_sweep(xin, b, a, f, coefs,
+                                                       zero_x))
+                err = rel_err(got, smoother_sweep_plain(xin, b, a, f, coefs,
+                                                        zero_x))
+                finite = bool(torch.isfinite(got).all())
+                print(f"  D {label}{', zero guess' if zero_x else ''} {tag}: "
+                      f"max rel err {err:.3e} (bound {bnd:g}); repeated runs "
+                      f"{'bit-identical' if same else 'DIFFER'}"
+                      + ("" if finite else "; NOT FINITE"))
+                if not (err <= bnd and same and finite):
+                    raise Failed(f"{name} {label} zero_x={zero_x} {tag}: "
+                                 f"{err:.3e}, bit-identical={same}, "
+                                 f"finite={finite}")
+        coefs = rows[0][1]  # 1st kind, degree 2: the fdm1 ladder's sweep
+        for zero_x in (False, True):
+            xin = None if zero_x else x
+            kern = lambda: smoother_sweep(xin, b, a, f, coefs, zero_x)
+            plain = lambda: smoother_sweep_plain(xin, b, a, f, coefs, zero_x)
+            k_ms, p_ms = in_turns(plain, kern, reps)
+            form = "zero guess" if zero_x else "from x"
+            print_time(f"D degree 2 {form} {tag}", n, k_ms, p_ms)
+            work = bound(*sweep_work(c ** 3, n, p, 2, zero_x), 4)
+            print(f"    bound {work[0]:.4f} ms ({work[1]})")
+            key = f"{c}^3 cells Q{p}, degree 2, {form}, {n} DoFs"
+            results.setdefault(name, {})[key] = (
+                float((kern() - plain()).abs().max()), k_ms, p_ms, work)
+        if c != max(cells_list) or p != 4:
+            continue
+
+        def unfused():
+            """The unfused smoother loop on the card: kernels A and B with
+            the torch vector operations between them."""
+            xs, pm = x, None
+            for s, (f1, f2) in enumerate(coefs):
+                y = fdm_patch(banded_laplace(xs, a, rhs=b), f, f2)
+                pm = y if s == 0 else f1 * pm + y
+                xs = xs + pm
+            return xs
+
+        err = rel_err(unfused(), smoother_sweep(x, b, a, f, coefs))
+        d_ms, u_ms = in_turns(unfused, lambda: smoother_sweep(x, b, a, f,
+                                                              coefs), reps)
+        print(f"    D degree 2 from x {tag}: D {d_ms:.4f} ms, unfused loop "
+              f"(A, B, torch vector ops) {u_ms:.4f} ms, ratio "
+              f"{u_ms / d_ms:.3f}; max rel difference {err:.3e}")
+        relax = [(0.0, omega)] * 2
+        steps = lambda: smoother_step(smoother_step(x, b, a, f, omega), b, a,
+                                      f, omega)
+        err = rel_err(steps(), smoother_sweep(x, b, a, f, relax))
+        d_ms, c_ms = in_turns(steps, lambda: smoother_sweep(x, b, a, f, relax),
+                              reps)
+        print(f"    D relaxation degree 2 from x {tag}: D {d_ms:.4f} ms, two "
+              f"unrolled kernel-C steps {c_ms:.4f} ms, ratio "
+              f"{c_ms / d_ms:.3f}; max rel difference {err:.3e}")
+        if not err <= bnd:
+            raise Failed(f"{name} vs kernel C steps {tag}: {err:.3e}")
+        del op, asm
+        torch.cuda.empty_cache()
+
+
+def run_solve(path: str, n_small: int | None, it_small: int | None,
+              it_full: int | None, n_dofs: int, kernels, counts,
+              slack: int = 0, check_vcycle: bool = False, record=None,
+              absent=(), best_of: int | None = None):
+    """Phase 4 to 8: one config through run_config on the card, first (with
+    ``n_small`` given) at ``n_small`` refinements against the plain CPU
+    path, then at full size with the launch counts set to 0 just before and
+    read just after.  Every kernel of ``kernels`` must be launched and none
+    of ``absent``; ``counts`` takes the counts of ``record`` (default
+    ``kernels``).  ``it_full`` None accepts any converged count; ``best_of``
+    overrides the config's.
 
     The small case holds the CPU path to ``it_small`` (the JAX package's
     count), the card's solution to rel-l2 1e-6 of the CPU's, the first 20
@@ -436,7 +596,66 @@ def run_solve(path: str, n_small: int, it_small: int, it_full: int,
 
     with open(path) as f:
         params = json.load(f)
+    if best_of is not None:
+        params["solver"]["best of"] = best_of
     name = os.path.basename(path)
+    if n_small is not None:
+        check_small(params, name, n_small, it_small, slack)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_config(params, log=print, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    counts.update({k: got[k] for k in (kernels if record is None
+                                       else record)})
+    x = res["solution"]
+    finite = bool(torch.isfinite(x).all())
+    print(f"  {name}: {res['n_dofs']} DoFs, converged={res['converged']}, "
+          f"it={res['it']}, setup {res['setup_time']:.3f} s, best-of-"
+          f"{params['solver'].get('best of', 1)} solve {res['time']:.4f} s, "
+          f"run_config wall {wall:.3f} s, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    thr = float(params["solver"]["rel tolerance"]) * res["residuals"][0]
+    print(f"  last residuals / threshold: "
+          f"{[round(r / thr, 4) for r in res['residuals'][-2:]]}")
+    print(f"  launch counts on this path: {json.dumps(got)}")
+    if x.shape != (n_dofs,) or x.dtype != torch.float64 or not finite:
+        raise Failed(f"{name} solution: shape {tuple(x.shape)}, {x.dtype}, "
+                     f"finite={finite}")
+    if not res["converged"] or it_full not in (None, res["it"]):
+        raise Failed(f"{name}: converged={res['converged']}, it={res['it']}, "
+                     f"expected {it_full}")
+    missing = [k for k in kernels if got[k] <= 0]
+    if missing:
+        raise Failed(f"kernels not launched on the {name} path: {missing}")
+    launched = [k for k in absent if got[k] != 0]
+    if launched:
+        raise Failed(f"kernels launched on the {name} path: {launched}")
+    if check_vcycle:
+        # the V-cycle sums in a fixed order everywhere: two applies agree
+        # bitwise
+        b = torch.sin(torch.arange(n_dofs, dtype=torch.float64,
+                                   device="cuda"))
+        pre = res["preconditioner"]
+        same = torch.equal(pre.vmult(b), pre.vmult(b))
+        print(f"  two V-cycle applies {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise Failed(f"{name}: repeated V-cycle applies differ")
+    return res
+
+
+def check_small(params: dict, name: str, n_small: int, it_small: int,
+                slack: int) -> None:
+    """The config at ``n_small`` refinements on the card against the plain
+    CPU path (see ``run_solve``)."""
+    from dealii_asm_tpu_torch.models.poisson import run_config
+
     small = copy.deepcopy(params)
     small["n refinements"] = n_small
     small["print timing"] = False
@@ -463,47 +682,34 @@ def run_solve(path: str, n_small: int, it_small: int, it_full: int,
         raise Failed(f"{name} at {n_small} refinements disagrees with the "
                      "CPU path")
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    res = run_config(params, log=print, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = launch_counts()
-    counts.update({k: got[k] for k in kernels})
-    x = res["solution"]
-    finite = bool(torch.isfinite(x).all())
-    print(f"  {name}: {res['n_dofs']} DoFs, converged={res['converged']}, "
-          f"it={res['it']}, setup {res['setup_time']:.3f} s, best-of-3 solve "
-          f"{res['time']:.4f} s, run_config wall {wall:.3f} s, "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    thr = float(params["solver"]["rel tolerance"]) * res["residuals"][0]
-    print(f"  last residuals / threshold: "
-          f"{[round(r / thr, 4) for r in res['residuals'][-2:]]}")
-    print(f"  launch counts on this path: {json.dumps(got)}")
-    if x.shape != (n_dofs,) or x.dtype != torch.float64 or not finite:
-        raise Failed(f"{name} solution: shape {tuple(x.shape)}, {x.dtype}, "
-                     f"finite={finite}")
-    if not (res["converged"] and res["it"] == it_full):
-        raise Failed(f"{name}: converged={res['converged']}, it={res['it']}, "
-                     f"expected {it_full}")
-    missing = [k for k in kernels if got[k] <= 0]
-    if missing:
-        raise Failed(f"kernels not launched on the {name} path: {missing}")
-    if check_vcycle:
-        # the V-cycle sums in a fixed order everywhere: two applies agree
-        # bitwise
-        b = torch.sin(torch.arange(n_dofs, dtype=torch.float64,
-                                   device="cuda"))
-        pre = res["preconditioner"]
-        same = torch.equal(pre.vmult(b), pre.vmult(b))
-        print(f"  two V-cycle applies {'bit-identical' if same else 'DIFFER'}")
-        if not same:
-            raise Failed(f"{name}: repeated V-cycle applies differ")
-    return res
+
+def run_ladder(counts) -> None:
+    """Phases 7 and 8: the large-scaling ladder's fdm1 rungs with kernel D
+    behind its gate, set here and restored after."""
+    saved = os.environ.get(CHAIN_GATE)
+    try:
+        os.environ[CHAIN_GATE] = "2"
+        print(f"== ladder fdm1 r=6 on the card, {CHAIN_GATE}=2")
+        run_solve(LADDER_R6, 2, 9, 65, 16_974_593,
+                  LADDER_KERNELS + ("banded_laplace_f32",
+                                    "banded_laplace_f64"), counts,
+                  record=LADDER_KERNELS, best_of=3)
+        del os.environ[CHAIN_GATE]
+        print(f"== ladder fdm1 r=6 on the card, {CHAIN_GATE} unset")
+        run_solve(LADDER_R6, None, None, 65, 16_974_593,
+                  ("banded_laplace_f32", "fdm_patch"), counts, record=(),
+                  absent=LADDER_KERNELS, best_of=1)
+        os.environ[CHAIN_GATE] = "2"
+        print(f"== ladder fdm1 r=7 (CoarseCG) on the card, {CHAIN_GATE}=2")
+        run_solve(LADDER_R7, None, None, None, 135_005_697,
+                  LADDER_KERNELS + ("banded_laplace_f32",
+                                    "banded_laplace_f64"), counts,
+                  record=(), best_of=1)
+    finally:
+        if saved is None:
+            os.environ.pop(CHAIN_GATE, None)
+        else:
+            os.environ[CHAIN_GATE] = saved
 
 
 def main(argv=None) -> int:
@@ -561,6 +767,7 @@ def main(argv=None) -> int:
         check_kernels([2] if args.quick else [2, 16, 64], [2, 4], results)
         check_merged([2] if args.quick else [2, 12, 48], [1, 2], results)
         check_lanes([0] if args.quick else [0, 2, 4], [1, 2], results)
+        check_sweep([2] if args.quick else [16, 64], results)
         if not args.quick:
             print("== flagship solve on the card")
             run_solve(FLAGSHIP, 2, 4, 5, 16_974_593, FLAGSHIP_KERNELS, counts)
@@ -570,6 +777,7 @@ def main(argv=None) -> int:
             print("== hyperball solve on the card")
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
+            run_ladder(counts)
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -26,6 +26,8 @@ from .ops.transfer_general import GeneralTwoLevelTransfer
 from .precond.asm import ASMPreconditioner, CellASMPreconditioner
 from .precond.asm_general import GeneralASMPreconditioner
 from .precond.fdm import FDMCollection
+from .solvers.chebyshev import (ChebyshevPreconditioner, EigenvalueInfo,
+                                RelaxationPreconditioner)
 
 # the JAX package's order of the six symmetric coefficient components
 # (``_SYM_PAIRS``, ``ops/laplace_general.py:36-37``)
@@ -167,3 +169,32 @@ def global_fdm_numpy(asm) -> tuple:
     conv = lambda xs: [np.asarray(x.cpu() if isinstance(x, torch.Tensor)
                                   else x, np.float64) for x in xs]
     return conv(Gs), conv(Gts), conv(lams)
+
+
+def _eigenvalues_from_jax(info) -> EigenvalueInfo | None:
+    if info is None:
+        return None
+    return EigenvalueInfo(float(info.min_eigenvalue_estimate),
+                          float(info.max_eigenvalue_estimate),
+                          int(info.cg_n_iterations))
+
+
+def chebyshev_from_jax(cheb, A, M, n_dofs: int,
+                       device=DEFAULT_DEVICE) -> ChebyshevPreconditioner:
+    """Port Chebyshev smoother around (A, M) with a JAX
+    ``ChebyshevPreconditioner``'s degree, kind, smoothing range and
+    eigenvalue estimates, so that both apply the same polynomial."""
+    return ChebyshevPreconditioner(
+        A, M, n_dofs, degree=cheb.degree,
+        smoothing_range=cheb.smoothing_range,
+        polynomial_type=cheb.polynomial_type,
+        eigenvalues=_eigenvalues_from_jax(cheb.eigenvalues), device=device)
+
+
+def relaxation_from_jax(rel, A, M, n_dofs: int,
+                        device=DEFAULT_DEVICE) -> RelaxationPreconditioner:
+    """Port relaxation smoother around (A, M) with a JAX
+    ``RelaxationPreconditioner``'s step count, ω and eigenvalue estimates."""
+    return RelaxationPreconditioner(
+        A, M, n_dofs, n_iterations=rel.n_iterations, omega=float(rel.omega),
+        eigenvalues=_eigenvalues_from_jax(rel.eigenvalues), device=device)

@@ -15,6 +15,7 @@ LAUNCHES = {
     "merged_laplace_f32": 0,
     "merged_laplace_f64": 0,
     "smoother_step": 0,
+    "smoother_sweep": 0,
 }
 
 

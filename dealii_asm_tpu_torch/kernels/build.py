@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "lanes_laplace.cu",
-           "merged_laplace.cu", "smoother_step.cu")
+           "merged_laplace.cu", "smoother_step.cu", "smoother_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "libdealii_asm_kernels.so"
@@ -35,6 +35,9 @@ _I = ctypes.c_int
 _BANDED = [_P, _P, _P] + [_P] * 6 + [_I] * 5 + [_P]
 _FDM = [_P, _P, _P] + [_P] * 12 + [_I] * 4
 _STEP = [_P, _P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
+# x, b, r, p, out, tmp; the 6 + 12 tables; Cz, Cy, Cx, p; the host array of
+# coefficient rows, k, zero_x, the stream
+_SWEEP = [_P] * 6 + [_P] * 6 + [_P] * 12 + [_I] * 4 + [_P, _I, _I, _P]
 _MERGED = [_P] * 6 + [_I] * 5 + [_P]
 _LANES = [_P] * 9 + [_I] * 4 + [_P]
 SIGNATURES = {
@@ -48,6 +51,8 @@ SIGNATURES = {
     "dat_merged_laplace_f64": _MERGED,
     "dat_smoother_step_f32": _STEP + [ctypes.c_float, _P],
     "dat_smoother_step_f64": _STEP + [ctypes.c_double, _P],
+    "dat_smoother_sweep_f32": _SWEEP,
+    "dat_smoother_sweep_f64": _SWEEP,
 }
 
 _loaded: ctypes.CDLL | None = None

@@ -2,6 +2,8 @@
 //
 //   out = omega * P^-1 src            (kScale)
 //   out = xold + omega * P^-1 src     (kUpdate)
+//   p' = f1 p + omega P^-1 src,  out = xold + p'   (kMomentum, one sub-step
+//                                                   of kernel D's sweep)
 //   P^-1 = sum over cells of  R_c^T Fout (Vz x Vy x Vx) diag(1/(lz+ly+lx))
 //                                   (Vz x Vy x Vx)^T Fin R_c
 //
@@ -32,11 +34,13 @@
 namespace dat {
 namespace {
 
-template <typename T, int M>
+// MOM selects the momentum epilogue at compile time, so the kScale/kUpdate
+// instantiations are the same code as without it.
+template <typename T, int M, bool MOM>
 __global__ void __launch_bounds__(M * M * M)
 fdm_patch_kernel(FDMTables<T> t, const T* __restrict__ src,
                  const T* __restrict__ xold, T* __restrict__ out, T omega,
-                 int mode) {
+                 int mode, Momentum<T> mom) {
   constexpr int P = M - 1;
   constexpr int M2 = M * M;
   constexpr int M3 = M * M * M;
@@ -105,16 +109,56 @@ fdm_patch_kernel(FDMTables<T> t, const T* __restrict__ src,
     const int nx = cx * P + ix, ny = cy * P + iy, nz = cz * P + iz;
     const size_t idx = (static_cast<size_t>(nz) * Ny + ny) * Nx + nx;
     const T val = omega * (acc * (t.fout_z[nz] * t.fout_y[ny] * t.fout_x[nx]));
-    out[idx] = mode == kUpdate ? xold[idx] + val : val;
+    if constexpr (MOM) {
+      // p is read and written only here, by the thread that owns idx; it is
+      // not read where read_p is 0 (the first sub-step: p may be garbage)
+      const T pn = mom.read_p ? mom.f1 * mom.p[idx] + val : val;
+      if (mom.write_p) mom.p[idx] = pn;
+      out[idx] = xold != nullptr ? xold[idx] + pn : pn;
+    } else {
+      out[idx] = mode == kUpdate ? xold[idx] + val : val;
+    }
   }
 }
 
-template <typename T, int M>
+template <typename T, int M, bool MOM>
 void launch_m(const FDMTables<T>& t, const T* src, const T* xold, T* out,
-              T omega, int mode, cudaStream_t stream) {
+              T omega, int mode, const Momentum<T>& mom,
+              cudaStream_t stream) {
   const dim3 grid(t.Cx, t.Cy, t.Cz);
-  fdm_patch_kernel<T, M><<<grid, M * M * M, 0, stream>>>(t, src, xold, out,
-                                                         omega, mode);
+  fdm_patch_kernel<T, M, MOM><<<grid, M * M * M, 0, stream>>>(
+      t, src, xold, out, omega, mode, mom);
+}
+
+template <typename T, bool MOM>
+cudaError_t launch(const FDMTables<T>& t, const T* src, const T* xold, T* out,
+                   T omega, int mode, const Momentum<T>& mom,
+                   cudaStream_t stream) {
+  switch (t.p) {
+    case 1:
+      launch_m<T, 2, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 2:
+      launch_m<T, 3, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 3:
+      launch_m<T, 4, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 4:
+      launch_m<T, 5, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 5:
+      launch_m<T, 6, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 6:
+      launch_m<T, 7, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    case 7:
+      launch_m<T, 8, MOM>(t, src, xold, out, omega, mode, mom, stream);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -123,17 +167,17 @@ template <typename T>
 cudaError_t fdm_patch_launch(const FDMTables<T>& t, const T* src,
                              const T* xold, T* out, T omega, int mode,
                              cudaStream_t stream) {
-  switch (t.p) {
-    case 1: launch_m<T, 2>(t, src, xold, out, omega, mode, stream); break;
-    case 2: launch_m<T, 3>(t, src, xold, out, omega, mode, stream); break;
-    case 3: launch_m<T, 4>(t, src, xold, out, omega, mode, stream); break;
-    case 4: launch_m<T, 5>(t, src, xold, out, omega, mode, stream); break;
-    case 5: launch_m<T, 6>(t, src, xold, out, omega, mode, stream); break;
-    case 6: launch_m<T, 7>(t, src, xold, out, omega, mode, stream); break;
-    case 7: launch_m<T, 8>(t, src, xold, out, omega, mode, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (mode != kScale && mode != kUpdate) return cudaErrorInvalidValue;
+  return launch<T, false>(t, src, xold, out, omega, mode,
+                          Momentum<T>{nullptr, T(0), 0, 0}, stream);
+}
+
+template <typename T>
+cudaError_t fdm_patch_momentum_launch(const FDMTables<T>& t, const T* src,
+                                      const T* xold, T* out, T f2,
+                                      const Momentum<T>& mom,
+                                      cudaStream_t stream) {
+  return launch<T, true>(t, src, xold, out, f2, kMomentum, mom, stream);
 }
 
 template cudaError_t fdm_patch_launch<float>(const FDMTables<float>&,
@@ -144,6 +188,12 @@ template cudaError_t fdm_patch_launch<double>(const FDMTables<double>&,
                                               const double*, const double*,
                                               double*, double, int,
                                               cudaStream_t);
+template cudaError_t fdm_patch_momentum_launch<float>(
+    const FDMTables<float>&, const float*, const float*, float*, float,
+    const Momentum<float>&, cudaStream_t);
+template cudaError_t fdm_patch_momentum_launch<double>(
+    const FDMTables<double>&, const double*, const double*, double*, double,
+    const Momentum<double>&, cudaStream_t);
 
 }  // namespace dat
 

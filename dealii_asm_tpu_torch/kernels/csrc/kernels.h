@@ -2,8 +2,8 @@
 //
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
 // fdm_patch.cu, lanes_laplace.cu, merged_laplace.cu; the last two share the
-// per-cell body of sumfac_cell.cuh); smoother_step.cu composes the host
-// launchers of the first two.  Every
+// per-cell body of sumfac_cell.cuh); smoother_step.cu and smoother_sweep.cu
+// compose the host launchers of the first two.  Every
 // extern "C" entry returns cudaGetLastError() after its launches, so the
 // Python wrapper can raise on a refused launch.
 //
@@ -58,8 +58,22 @@ enum BandedMode : int {
 
 // Epilogue of the FDM patch kernel.
 enum FDMMode : int {
-  kScale = 0,   // out = omega * P^-1 src
-  kUpdate = 1,  // out = xold + omega * P^-1 src
+  kScale = 0,     // out = omega * P^-1 src
+  kUpdate = 1,    // out = xold + omega * P^-1 src
+  kMomentum = 2,  // p' = f1 p + omega P^-1 src, out = xold + p'
+};
+
+// State of the kMomentum epilogue: the momentum vector p, updated in place
+// (each node is read and written by the thread that owns it), its factor
+// f1, whether p is read (0 on a sweep's first sub-step, where p holds no
+// value yet) and whether p' is stored (0 when no later sub-step reads it).
+// xold == nullptr stands for x = 0.
+template <typename T>
+struct Momentum {
+  T* p;
+  T f1;
+  int read_p;
+  int write_p;
 };
 
 template <typename T>
@@ -71,5 +85,11 @@ template <typename T>
 cudaError_t fdm_patch_launch(const FDMTables<T>& t, const T* src,
                              const T* xold, T* out, T omega, int mode,
                              cudaStream_t stream);
+
+template <typename T>
+cudaError_t fdm_patch_momentum_launch(const FDMTables<T>& t, const T* src,
+                                      const T* xold, T* out, T f2,
+                                      const Momentum<T>& mom,
+                                      cudaStream_t stream);
 
 }  // namespace dat

@@ -141,6 +141,29 @@ class LaplaceOperator(nn.Module):
     def forward(self, u):
         return self.vmult(u)
 
+    def compute_inverse_diagonal(self) -> torch.Tensor:
+        """1 / diag(A) in the operator's dtype, constrained rows 1
+        (``laplace.py:771-806``).  Cartesian: diag(Σ_d ⊗ M̂…K̂_d…M̂) is the
+        sum over d of outer products of the global 1D diagonals, z slowest,
+        formed in the operator's dtype in the JAX package's order."""
+        if self.deformed:
+            raise NotImplementedError(
+                "the inverse diagonal of a deformed operator is not ported "
+                "yet (ROADMAP item 11)")
+        dM = [self._tensor(np.diagonal(M)) for M in self.M1d_global]
+        dK = [self._tensor(np.diagonal(K)) for K in self.K1d_global]
+        diag = None
+        for d in range(self.dim):
+            vecs = [dK[e] if e == d else dM[e]
+                    for e in reversed(range(self.dim))]
+            term = vecs[0]
+            for v in vecs[1:]:
+                term = (term[:, None] * v[None, :]).reshape(-1)
+            diag = term if diag is None else diag + term
+        diag = torch.where(self.free.reshape(-1), diag,
+                           torch.ones((), dtype=self.dtype, device=self.device))
+        return 1.0 / diag
+
     def assemble_rhs(self, rhs: str = "constant") -> torch.Tensor:
         """b_i = ∫ f φ_i for f = 1, zero at constrained nodes
         (``laplace.py:808-835``).

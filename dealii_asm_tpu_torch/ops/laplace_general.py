@@ -87,6 +87,11 @@ class GeneralLaplaceOperator(nn.Module):
     def forward(self, u):
         return self.vmult(u)
 
+    def compute_inverse_diagonal(self):
+        raise NotImplementedError(
+            "the inverse diagonal of an unstructured operator is not ported "
+            "yet (ROADMAP item 11)")
+
     def assemble_rhs(self, rhs: str = "constant") -> torch.Tensor:
         """b_i = ∫ f φ_i for f = 1: jxw times the basis values at the
         quadrature points, summed into the DoFs in a fixed order, zero at

@@ -1,24 +1,32 @@
 """JSON-driven preconditioner factory (PyTorch).
 
-Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, FDM
-(element-centric overlap 1; per-coordinate tables on Cartesian meshes,
+Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, Diagonal,
+FDM (element-centric overlap 1; per-coordinate tables on Cartesian meshes,
 per-cell tables on deformed and unstructured ones), AMG (the dense direct
-coarse solve) and Chebyshev, with the reference's defaults.  On CUDA, every Chebyshev level
-around a Cartesian FDM preconditioner gets the fused smoother step (kernel
-C); there is no size gate and no fallback.  Other types raise NotImplementedError
-naming their ROADMAP item.
+coarse solve), CoarseCG (diagonal-preconditioned CG to a reduction),
+Relaxation and Chebyshev, with the reference's defaults.  On CUDA, every
+Relaxation or Chebyshev level around a Cartesian FDM preconditioner gets
+the fused smoother step (kernel C), and, when its degree is named in
+``DEALII_ASM_TPU_CHAIN_DEGREES`` (none by default, as in the JAX package),
+the fused sweep (kernel D); there is no size gate and no fallback.  Other
+types raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
+
 from ..fem.general_dofs import GeneralDofHandler
 from ..kernels.banded_laplace import BandedTables
 from ..kernels.smoother_step import smoother_step
-from ..solvers.chebyshev import ChebyshevPreconditioner
+from ..kernels.smoother_sweep import smoother_sweep
+from ..solvers.chebyshev import (ChebyshevPreconditioner,
+                                 RelaxationPreconditioner)
 from ..utils.config import get_child, get_param
 from .asm import ASMPreconditioner, CellASMPreconditioner
 from .asm_general import GeneralASMPreconditioner
-from .multigrid import DirectCoarseSolver
+from .diagonal import DiagonalPreconditioner
+from .multigrid import DirectCoarseSolver, IterativeCoarseSolver
 
 
 class IdentityPreconditioner:
@@ -35,21 +43,44 @@ def _noop_log(msg=""):
     pass
 
 
+def _chain_win_degrees() -> set:
+    """Smoother degrees that take the fused sweep (kernel D): those named in
+    ``DEALII_ASM_TPU_CHAIN_DEGREES`` (comma-separated), none by default, as
+    in the JAX package (``factory.py:143-151``)."""
+    env = os.environ.get("DEALII_ASM_TPU_CHAIN_DEGREES", "")
+    return {int(t) for t in env.split(",") if t.strip()}
+
+
 def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
-    """Attach kernel C as the smoother's fused step on Cartesian CUDA levels
-    whose inner preconditioner is the per-coordinate FDM Schwarz apply
-    (``factory.py:34-44``, without the chain kernel and without the TPU's
-    size gate).  A deformed level has no banded tables and no kernel B
-    tables, so it keeps the unfused step, as does an unstructured level, as
-    in the JAX package."""
+    """Attach the fused kernels on Cartesian CUDA levels whose inner
+    preconditioner is the per-coordinate FDM Schwarz apply
+    (``factory.py:51-134``, without the TPU's size gate).  A deformed level
+    has no banded tables and no kernel B tables, so it keeps the unfused
+    smoother, as does an unstructured level, as in the JAX package."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
             or not isinstance(op.tables, BandedTables)):
         return
+    attach_fused_kernels(smoother, op, inner, log)
+
+
+def attach_fused_kernels(smoother, op, inner, log=_noop_log):
+    """Kernel C as the smoother's fused step and, for a degree in
+    ``_chain_win_degrees()``, kernel D as its fused sweeps.  On CPU tensors
+    the wrappers run their plain versions."""
     if inner.dtype != op.dtype:
         raise TypeError(f"operator {op.dtype} and FDM {inner.dtype} differ")
     a, f = op.tables, inner.tables
     smoother.fused_step = lambda x, b, om: smoother_step(x, b, a, f, om)
     log("    - fused step:  cuda\n")
+    degree = int(getattr(smoother, "degree", 0)
+                 or getattr(smoother, "n_iterations", 0))
+    if degree not in _chain_win_degrees():
+        return
+    coefs = tuple(smoother.sweep_coefficients())
+    smoother.fused_sweep = lambda x, b: smoother_sweep(x, b, a, f, coefs)
+    smoother.fused_sweep_zero = lambda b: smoother_sweep(None, b, a, f, coefs,
+                                                         zero_x=True)
+    log(f"    - fused sweep: cuda momentum chain (degree {degree})\n")
 
 
 def create_system_preconditioner(op, params: dict, log=_noop_log):
@@ -59,6 +90,12 @@ def create_system_preconditioner(op, params: dict, log=_noop_log):
         log("- Create system preconditioner: Identity\n")
         return IdentityPreconditioner()
 
+    if ptype == "Diagonal":
+        log("- Create system preconditioner: Diagonal\n")
+        p = DiagonalPreconditioner(op)
+        p.is_symmetric = True
+        return p
+
     if ptype == "FDM":
         return _create_fdm(op, params, log)
 
@@ -67,6 +104,36 @@ def create_system_preconditioner(op, params: dict, log=_noop_log):
         p = DirectCoarseSolver(op.dofs, dtype=op.dtype, device=op.device)
         p.is_symmetric = True
         return p
+
+    if ptype == "CoarseCG":
+        p = IterativeCoarseSolver(
+            op, reduction=float(get_param(params, "reduction", 1e-4)),
+            max_iterations=int(get_param(params, "max iterations", 200)))
+        p.is_symmetric = True
+        log("- Create system preconditioner: CoarseCG\n")
+        return p
+
+    if ptype == "Relaxation":
+        inner = create_system_preconditioner(
+            op, get_child(params, "preconditioner"), log)
+        degree = int(get_param(params, "degree", 3))
+        omega = float(get_param(params, "omega", 0.0))
+        log(f"- Create system preconditioner: Relaxation\n    - degree: "
+            f"{degree}")
+        sym = getattr(inner, "is_symmetric", False)
+        algo = get_param(params, "ev algorithm",
+                         "lanczos" if sym else "power iteration")
+        rel = RelaxationPreconditioner(
+            op.vmult, inner.vmult, op.n_dofs, n_iterations=degree,
+            omega=omega, constrained_mask=op.dofs.boundary_mask,
+            ev_algorithm=algo, device=op.device)
+        if rel.eigenvalues is not None:
+            log(f"    - min ev: {rel.eigenvalues.min_eigenvalue_estimate:g}")
+            log(f"    - max ev: {rel.eigenvalues.max_eigenvalue_estimate:g}")
+        log(f"    - omega:  {rel.omega:g}\n")
+        rel.is_symmetric = sym
+        _try_attach_fused_step(rel, op, inner, log)
+        return rel
 
     if ptype == "Chebyshev":
         inner = create_system_preconditioner(
@@ -92,14 +159,6 @@ def create_system_preconditioner(op, params: dict, log=_noop_log):
         _try_attach_fused_step(cheb, op, inner, log)
         return cheb
 
-    if ptype in ("Diagonal", "Relaxation"):
-        raise NotImplementedError(
-            f"preconditioner {ptype!r} is not ported yet (ROADMAP item 11)"
-            if ptype == "Diagonal" else
-            "preconditioner 'Relaxation' is not ported yet (ROADMAP item 9)")
-    if ptype == "CoarseCG":
-        raise NotImplementedError(
-            "preconditioner 'CoarseCG' is not ported yet (ROADMAP item 6)")
     if ptype in ("AdditiveSchwarzPreconditioner", "SubMeshPreconditioner",
                  "CGPreconditioner"):
         raise NotImplementedError(

@@ -1,7 +1,8 @@
-"""Geometric/polynomial multigrid V-cycle and the direct coarse solver.
+"""Geometric/polynomial multigrid V-cycle and the coarse solvers.
 
 Counterpart of ``dealii_asm_tpu/precond/multigrid.py`` (``Multigrid``
-:82-152, ``DirectCoarseSolver`` :23), run eagerly: per level a zero-guess
+:82-152, ``DirectCoarseSolver`` :23, ``IterativeCoarseSolver`` :49), run
+eagerly: per level a zero-guess
 pre-smooth, the residual rhs − A x (kernel A with its residual epilogue),
 restriction, the coarse correction, prolongation, and the post-smoothing
 step (kernel C on CUDA).  Options: one-sided V-cycle, several coarse cycles,
@@ -17,6 +18,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.general_dofs import GeneralDofHandler
 from ..ops.laplace import LaplaceOperator
 from ..ops.laplace_general import GeneralLaplaceOperator
+from ..solvers.krylov import cg_traceable
 
 
 class DirectCoarseSolver:
@@ -47,6 +49,29 @@ class DirectCoarseSolver:
 
     def vmult(self, b):
         return self.Ainv @ b
+
+    def __call__(self, b):
+        return self.vmult(b)
+
+
+class IterativeCoarseSolver:
+    """Matrix-free coarse solve: CG preconditioned with the inverse diagonal,
+    to ``reduction``·‖b‖ or ``max_iterations`` (the "CoarseCG" type, which
+    the large configs of the scaling ladder name in place of the dense
+    inverse)."""
+
+    def __init__(self, op, reduction: float = 1e-4,
+                 max_iterations: int = 200):
+        self.op = op
+        self.reduction = reduction
+        self.max_iterations = max_iterations
+        self._inv_diag = op.compute_inverse_diagonal()
+
+    def vmult(self, b):
+        inv_diag = self._inv_diag
+        return cg_traceable(self.op.vmult, b, lambda v: v * inv_diag,
+                            reduction=self.reduction,
+                            max_iterations=self.max_iterations)
 
     def __call__(self, b):
         return self.vmult(b)

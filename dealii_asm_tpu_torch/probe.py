@@ -3,6 +3,8 @@
     python -m dealii_asm_tpu_torch.probe profile CONFIG.json [--refinements N]
     python -m dealii_asm_tpu_torch.probe sensitivity CONFIG.json --refinements N
     python -m dealii_asm_tpu_torch.probe setup CONFIG.json [--refinements N]
+    python -m dealii_asm_tpu_torch.probe ladder [SPEC ...] [--best-of N]
+                                                [--device cuda|cpu]
 
 ``profile``: ``run_config`` on the card, with ``torch.profiler`` over the
 first timed solve (after the warm-up solve): device time by kernel name, the
@@ -22,7 +24,19 @@ config, each summed over the meshes and levels the solve uses and timed on
 its own (the tables are cached, so ``run_config`` computes each once), then
 ``run_config``'s whole setup on the card for comparison.
 
-All print the card's name and power limit first; they need a GPU.
+``ladder``: the large-scaling ladder, the counterpart of
+``experiments/run_large_scaling.py``.  Each SPEC is ``smoother:rmin[-rmax]``
+with smoother diag, fdm1, fdm2 or fdmv; each rung reads its config from
+``experiments/sweep_large_scaling/`` (anisotropy stretch 50, Q4,
+hp-multigrid) and prints one JSON record to standard output, with the keys
+of the JAX script's records (the outer solve is float64) plus the setup
+seconds, the device, and on the card the peak device memory and the kernel
+launches of the rung.  Default plan: fdm1:0-7 diag:7 fdm2:7 fdmv:7.  A rung
+whose options are not ported, or that runs out of device memory, records
+the error and the ladder goes on; any other error stops it.
+
+All print the card's name and power limit first; all but ``ladder
+--device cpu`` need a GPU.
 """
 
 from __future__ import annotations
@@ -33,9 +47,11 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
+from . import kernels
 from .kernels import lanes_laplace as lanes
 from .kernels import merged_laplace as merged
 from .models import poisson
@@ -210,20 +226,97 @@ def setup(params: dict) -> None:
           f"{res['n_dofs']} DoFs")
 
 
+LADDER_DIR = (Path(__file__).resolve().parent.parent / "experiments"
+              / "sweep_large_scaling")
+LADDER_COLUMN = {"diag": 0, "fdm1": 1, "fdm2": 2, "fdmv": 3}
+
+
+def ladder_config(smoother: str, refinement: int) -> dict:
+    """The sweep config of one rung (``run_large_scaling.py:31-36``)."""
+    idx = refinement * 4 + LADDER_COLUMN[smoother]
+    with open(LADDER_DIR / f"input_{idx:04d}.json") as f:
+        params = json.load(f)
+    if params["n refinements"] != refinement:
+        raise ValueError(f"input_{idx:04d}.json is not refinement "
+                         f"{refinement}")
+    return params
+
+
+def ladder_plan(specs) -> list:
+    plan = []
+    for spec in specs:
+        name, rng = spec.split(":")
+        lo, _, hi = rng.partition("-")
+        plan += [(name, r) for r in range(int(lo), int(hi or lo) + 1)]
+    return plan
+
+
+def ladder(specs, best_of: int = 3, device: str = "cuda") -> list:
+    """Run the rungs of ``specs`` and print one JSON record each."""
+    cuda = torch.device(device).type == "cuda"
+    records = []
+    for name, r in ladder_plan(specs):
+        params = ladder_config(name, r)
+        params["solver"]["best of"] = best_of
+        print(f"=== {name} r={r} (outer f64, {device})", flush=True)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = {"smoother": name, "refinement": r, "outer_dtype": "f64",
+               "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
+        try:
+            res = poisson.run_config(params, log=_quiet, device=device)
+        except (NotImplementedError, torch.cuda.OutOfMemoryError) as e:
+            rec["error"] = f"{type(e).__name__}: {e}"[:500]
+        else:
+            it, t = res["it"], res["time"]
+            rec.update({
+                "n_dofs": res["n_dofs"], "n_cells": res["n_cells"], "it": it,
+                "converged": res["converged"], "solve_seconds": t,
+                "seconds_per_it": t / max(it, 1),
+                "ns_per_dof_it": t / max(it, 1) / res["n_dofs"] * 1e9,
+                "gdofs_per_s": res["n_dofs"] * it / t / 1e9 if t > 0 else None,
+                "setup_seconds": res["setup_time"],
+                "setup_plus_total_seconds": time.perf_counter() - t0})
+            del res
+            if cuda:
+                rec["peak_device_memory_gib"] = (
+                    torch.cuda.max_memory_allocated() / 2**30)
+                rec["launches"] = {k: v for k, v in
+                                   kernels.launch_counts().items() if v}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m dealii_asm_tpu_torch.probe")
-    ap.add_argument("what", choices=("profile", "sensitivity", "setup"))
-    ap.add_argument("config")
-    ap.add_argument("--refinements", type=int, default=None)
+    sub = ap.add_subparsers(dest="what", required=True)
+    for what in ("profile", "sensitivity", "setup"):
+        sp = sub.add_parser(what)
+        sp.add_argument("config")
+        sp.add_argument("--refinements", type=int, default=None)
+    lp = sub.add_parser("ladder")
+    lp.add_argument("specs", nargs="*",
+                    default=["fdm1:0-7", "diag:7", "fdm2:7", "fdmv:7"])
+    lp.add_argument("--best-of", type=int, default=3)
+    lp.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("probe: torch.cuda.is_available() is False; it needs a GPU",
-              file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"gpu: {smi}")
+    on_card = args.what != "ladder" or torch.device(args.device).type == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            print("probe: torch.cuda.is_available() is False; it needs a GPU",
+                  file=sys.stderr)
+            return 2
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip()
+        print(f"gpu: {smi}")
+    if args.what == "ladder":
+        ladder(args.specs, args.best_of, args.device)
+        return 0
     params = _load(args.config, args.refinements)
     {"profile": profile, "sensitivity": sensitivity,
      "setup": setup}[args.what](params)

@@ -1,11 +1,17 @@
-"""Chebyshev smoother with Lanczos eigenvalue estimation (PyTorch).
+"""Chebyshev and relaxation smoothers with Lanczos eigenvalue estimation
+(PyTorch).
 
 Counterpart of ``dealii_asm_tpu/solvers/chebyshev.py``: the i%11 start
 vector (``eig_initial_guess`` :33), ``estimate_eigenvalues`` (:49; 40 CG
-iterations, λ̂ = largest Lanczos eigenvalue, max estimate 1.2·λ̂) and
-``ChebyshevPreconditioner`` (:130; 1st kind on [max/range, max], 4th kind
-with the Lottes recurrence), with the ``fused_step`` hook the factory fills
-with kernel C (``kernels/smoother_step.py``) for degree-1 steps.
+iterations, λ̂ = largest Lanczos eigenvalue, max estimate 1.2·λ̂),
+``chebyshev_sweep_coefficients`` (:103), ``ChebyshevPreconditioner`` (:130;
+1st kind on [max/range, max], 4th kind with the Lottes recurrence) and
+``RelaxationPreconditioner`` (:246; ω = 2/(max/range + max)).  The factory
+fills their hooks on Cartesian CUDA levels: ``fused_step`` with kernel C
+(``kernels/smoother_step.py``) for single steps, and, for the degrees named
+in ``DEALII_ASM_TPU_CHAIN_DEGREES``, ``fused_sweep``/``fused_sweep_zero``
+with kernel D (``kernels/smoother_sweep.py``), which runs the whole
+degree-k sweep.
 """
 
 from __future__ import annotations
@@ -70,6 +76,30 @@ def estimate_eigenvalues(A, n_dofs: int, M=None, constrained_mask=None,
     return EigenvalueInfo(lam, 1.2 * lam, result.n_iterations)
 
 
+def chebyshev_sweep_coefficients(degree, theta, delta, polynomial_type,
+                                 lam_max=None):
+    """(f1_s, f2_s) rows of the two-term recurrence
+
+        p_s = f1_s·p_{s−1} + f2_s·M(b − A x_{s−1}),   x_s = x_{s−1} + p_s
+
+    of a degree-``degree`` Chebyshev sweep (1st kind: the rho recurrence;
+    4th kind: the Lottes factors), the rows kernel D takes."""
+    if polynomial_type in ("1st kind", "first_kind", "first"):
+        coefs = [(0.0, 1.0 / theta)]
+        rhok = delta / theta
+        for _ in range(1, degree):
+            rhokp = 1.0 / (2.0 * theta / delta - rhok)
+            coefs.append((rhokp * rhok, 2.0 * rhokp / delta))
+            rhok = rhokp
+        return coefs
+    lam = float(lam_max)
+    coefs = [(0.0, 4.0 / (3.0 * lam))]
+    for k in range(1, degree):
+        coefs.append(((2.0 * k - 1.0) / (2.0 * k + 3.0),
+                      (8.0 * k + 4.0) / ((2.0 * k + 3.0) * lam)))
+    return coefs
+
+
 class ChebyshevPreconditioner:
     """deal.II-style Chebyshev smoother around (A, P⁻¹)."""
 
@@ -97,6 +127,16 @@ class ChebyshevPreconditioner:
         # callable (x, b, omega) -> x + omega·M(b − A x) in one kernel call;
         # exact for degree 1, attached by the factory on CUDA
         self.fused_step = None
+        # the whole sweep in one kernel call: fused_sweep(x, b) == step(x, b)
+        # and fused_sweep_zero(b) == vmult(b); attached by the factory
+        self.fused_sweep = None
+        self.fused_sweep_zero = None
+
+    def sweep_coefficients(self):
+        """(f1, f2) rows of this smoother's sweep."""
+        return chebyshev_sweep_coefficients(
+            self.degree, self.theta, self.delta, self.polynomial_type,
+            lam_max=self.beta_range)
 
     def _first_kind(self, x, b, zero_guess=False):
         theta, delta = self.theta, self.delta
@@ -135,6 +175,10 @@ class ChebyshevPreconditioner:
         return x + d
 
     def _apply(self, x, b, zero_guess=False):
+        if zero_guess and self.fused_sweep_zero is not None:
+            return self.fused_sweep_zero(b)
+        if not zero_guess and self.fused_sweep is not None:
+            return self.fused_sweep(x, b)
         if self.polynomial_type in ("1st kind", "first_kind", "first"):
             return self._first_kind(x, b, zero_guess)
         return self._fourth_kind(x, b, zero_guess)
@@ -144,6 +188,64 @@ class ChebyshevPreconditioner:
 
     def step(self, x, b):
         return self._apply(x, b)
+
+    def __call__(self, b):
+        return self.vmult(b)
+
+
+class RelaxationPreconditioner:
+    """deal.II PreconditionRelaxation: x ← x + ω P⁻¹(b − A x), n_iterations
+    times; ω = 2/(max/range + max) from the eigenvalue estimate unless
+    given."""
+
+    def __init__(self, A, M, n_dofs, n_iterations=3, omega=0.0,
+                 eigenvalues: EigenvalueInfo | None = None,
+                 smoothing_range=20.0, constrained_mask=None,
+                 ev_algorithm="lanczos", device=DEFAULT_DEVICE):
+        self.A = A
+        self.M = M
+        self.n_iterations = int(n_iterations)
+        if omega == 0.0:
+            if eigenvalues is None:
+                eigenvalues = estimate_eigenvalues(
+                    A, n_dofs, M=M, constrained_mask=constrained_mask,
+                    algorithm=ev_algorithm, device=device)
+            mx = eigenvalues.max_eigenvalue_estimate
+            alpha = mx / smoothing_range if smoothing_range > 1.0 else min(
+                0.9 * mx, eigenvalues.min_eigenvalue_estimate)
+            omega = 2.0 / (alpha + mx)
+        self.eigenvalues = eigenvalues
+        self.omega = omega
+        # hooks as on ChebyshevPreconditioner, attached by the factory
+        self.fused_step = None
+        self.fused_sweep = None
+        self.fused_sweep_zero = None
+
+    def sweep_coefficients(self):
+        """(f1, f2) rows: a Richardson sweep is f1 ≡ 0, f2 = ω."""
+        return [(0.0, self.omega)] * self.n_iterations
+
+    def step(self, x, b):
+        if self.fused_sweep is not None:
+            return self.fused_sweep(x, b)
+        for _ in range(self.n_iterations):
+            if self.fused_step is not None:
+                x = self.fused_step(x, b, self.omega)
+            else:
+                x = x + self.omega * self.M(b - self.A(x))
+        return x
+
+    def vmult(self, b):
+        if self.fused_sweep_zero is not None:
+            return self.fused_sweep_zero(b)
+        # zero initial guess: the first step is ω·M(b), with no operator
+        x = self.omega * self.M(b)
+        for _ in range(1, self.n_iterations):
+            if self.fused_step is not None:
+                x = self.fused_step(x, b, self.omega)
+            else:
+                x = x + self.omega * self.M(b - self.A(x))
+        return x
 
     def __call__(self, b):
         return self.vmult(b)

@@ -5,8 +5,9 @@ Counterpart of ``dealii_asm_tpu/solvers/krylov.py``: ``ReductionControl``
 step 0 on the initial residual), ``IterationNumberControl``, ``cg`` (:432,
 the host loop, monitoring the unpreconditioned ‖r‖ and optionally returning
 the CG-Lanczos tridiagonal eigenvalues, with the stall guard of :482-503),
-``_lanczos_eigenvalues`` (:532) and ``solve`` (:1061) for CG.  Dot products
-of sub-float64 vectors accumulate in float64.  The JAX package's double-
+``_lanczos_eigenvalues`` (:532), ``solve`` (:1061) for CG, and
+``cg_traceable`` (:1073), the coarse solver's CG to a fixed reduction.
+``cg``'s dot products of sub-float64 vectors accumulate in float64.  The JAX package's double-
 single outer loop is not ported: the outer matvec is native float64.
 """
 
@@ -169,3 +170,31 @@ def solve(solver_type, A, b, M=None, max_iterations=1000, abs_tolerance=1e-10,
             f"solver {solver_type!r} is not ported yet (ROADMAP item 11)")
     return cg(A, b, M=M, control=ReductionControl(
         max_iterations, abs_tolerance, rel_tolerance))
+
+
+def cg_traceable(A, b, M=None, reduction: float = 1e-4,
+                 max_iterations: int = 200) -> torch.Tensor:
+    """Preconditioned CG from x = 0 until ‖r‖ ≤ reduction·‖b‖ or
+    ``max_iterations``; returns x only.  The JAX counterpart runs on the
+    device in a ``lax.while_loop``; this loop reads ‖r‖² on the host once per
+    iteration.  The dot products run in the vectors' dtype, as there.  With
+    b = 0 it stops before its first division."""
+    M = M or _identity
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    target2 = (reduction * reduction) * torch.dot(b, b)
+    it = 0
+    while it < max_iterations and bool(torch.dot(r, r) > target2):
+        Ap = A(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        it += 1
+    return x

@@ -16,6 +16,7 @@ from dealii_asm_tpu_torch.kernels import build, launch_counts
 from dealii_asm_tpu_torch.kernels.banded_laplace import (banded_laplace,
                                                          banded_laplace_plain)
 from dealii_asm_tpu_torch.kernels.fdm_patch import fdm_patch, fdm_patch_plain
+from dealii_asm_tpu_torch.kernels.smoother_sweep import smoother_sweep
 from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
 from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
 from dealii_asm_tpu_torch.models.poisson import run_config
@@ -63,6 +64,15 @@ p["print timing"] = False
 p["solver"]["best of"] = 1
 r = run_config(p, log=lambda *a: None, device="cpu")
 assert r["converged"] and r["it"] == 5, r["it"]
+# the large-scaling ladder: fdm1 with the CoarseCG coarse solve, and diag
+for name in ("input_0029.json", "input_0028.json"):
+    with open("experiments/sweep_large_scaling/" + name) as f:
+        p = json.load(f)
+    p["n refinements"] = 1
+    p["print timing"] = False
+    p["solver"]["best of"] = 1
+    r = run_config(p, log=lambda *a: None, device="cpu")
+    assert r["converged"] and r["it"] == 7, r["it"]
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "dealii_asm_tpu")]
 assert not loaded, loaded
@@ -72,7 +82,9 @@ print("NO_JAX_OK")
 
 def test_port_imports_no_jax_and_runs_the_slice():
     """Neither jax nor any module of the JAX package is imported, on the
-    flagship's path, the Kershaw path and the ball path."""
+    flagship's path, the Kershaw path, the ball path and the large-scaling
+    ladder's fdm1 (with CoarseCG) and diag paths (7 iterations each at 1
+    refinement, as in the JAX package)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", NO_JAX_SLICE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -135,8 +147,14 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
 def test_kernel_wrappers_reject_other_devices():
     dofs = DofHandler(StructuredMesh(3, (1, 1, 1)), 2)
     op = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
+    asm = ASMPreconditioner(dofs, weighting_type="symm", dtype=torch.float32,
+                            device="cpu")
+    meta = torch.empty(dofs.n_dofs, device="meta")
     with pytest.raises(TypeError, match="unsupported device"):
-        banded_laplace(torch.empty(dofs.n_dofs, device="meta"), op.tables)
+        banded_laplace(meta, op.tables)
+    with pytest.raises(TypeError, match="unsupported device"):
+        smoother_sweep(None, meta, op.tables, asm.tables, [(0.0, 1.0)],
+                       zero_x=True)
 
 
 def test_build_raises_clear_error_without_nvcc(tmp_path, monkeypatch):

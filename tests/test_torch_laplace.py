@@ -12,6 +12,8 @@ Tolerances:
 - float32 apply: rel 1e-5 (relative to max |v|) against ``kernel="pallas-f32"``,
   the TPU F32VmultKernel in interpret mode: float32 rounding of the same
   products in another order (observed ~1e-7).
+- inverse diagonal, float64: rel 1e-14 against ``compute_inverse_diagonal``
+  (the same outer products of the 1D diagonals, in the same order).
 """
 
 import numpy as np
@@ -144,3 +146,23 @@ def test_unported_meshes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         LaplaceOperator(DofHandler(StructuredMesh(
             3, (2, 2, 2), periodic=(True, False, False)), 2))
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_inverse_diagonal_matches_jax(p):
+    jdofs, dofs = _dofs((3, 4, 5), p)
+    ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float64)
+                     .compute_inverse_diagonal())
+    got = LaplaceOperator(dofs, device="cpu").compute_inverse_diagonal()
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-14, atol=0)
+    np.testing.assert_array_equal(got.numpy()[dofs.boundary_mask], 1.0)
+
+
+def test_inverse_diagonal_of_deformed_operator_not_ported():
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+
+    mesh = StructuredMesh(3, (2, 2, 2), transform=kershaw_transform(0.3, 0.3))
+    op = LaplaceOperator(DofHandler(mesh, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        op.compute_inverse_diagonal()

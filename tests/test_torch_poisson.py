@@ -14,6 +14,17 @@ and 38 at 1 in both packages; solutions equal to rel-l2 1e-6.  There the JAX
 package's CPU float64 outer operator is its double-single composition
 (about 1e-8 relative, see tests/test_torch_merged.py), so the iterates
 differ by more: observed 4.4e-8 (0 refinements) and 1.7e-7 (1).
+
+The large-scaling ladder (experiments/sweep_large_scaling/, anisotropy
+stretch 50, Q4, hp-multigrid, float32 levels) takes the JAX package's
+counts on the CPU: fdm1 (Chebyshev-2 around FDM) 7, 9 and 15 at 1, 2 and 3
+refinements, diag (Chebyshev-3 around Diagonal) 15 at 2, fdm1 with the
+CoarseCG coarse solve (the r = 7 config input_0029.json) 9 at 2, and fdm1
+with its smoother replaced by Relaxation degree 3 around the same FDM 8 at
+2.  The fdm1 count at 2 refinements and its solution (rel-l2 1e-8) come
+from a JAX run in the test; the other counts are pinned from one run each
+of ``dealii_asm_tpu.models.poisson.run_config`` on the CPU with the same
+config.
 """
 
 import copy
@@ -34,6 +45,7 @@ with open(os.path.join(ROOT, "experiments", "e2e_kershaw_q4.json")) as _f:
     KERSHAW = json.load(_f)
 with open(os.path.join(ROOT, "experiments", "e2e_ball_q4.json")) as _f:
     BALL = json.load(_f)
+LADDER = os.path.join(ROOT, "experiments", "sweep_large_scaling")
 
 HYPERCUBE_Q2 = {
     "dim": 3, "degree": 2, "n refinements": 3,
@@ -150,8 +162,7 @@ def test_mg_level_layout_matches_jax(mg_type, mesh, degree, seq):
     (("preconditioner", "mg smoother", "preconditioner", "element centric"),
      False, "ROADMAP item 10"),
     (("mg number type",), "bfloat16", "ROADMAP item 9"),
-    (("preconditioner", "mg smoother", "type"), "Relaxation",
-     "ROADMAP item 9"),
+    (("mesh", "name"), "symmetric hypercube", "ROADMAP item 9"),
     (("solver", "type"), "GMRES", "ROADMAP item 11"),
     (("n devices",), 4, "ROADMAP item 14"),
     (("preconditioner", "mg smoother", "preconditioner", "weighting type"),
@@ -166,3 +177,58 @@ def test_unported_options_raise(path, value, item):
     node[path[-1]] = value
     with pytest.raises(NotImplementedError, match=item):
         run_config(params, log=_quiet, device="cpu")
+
+
+def _ladder(name, r):
+    """A ladder rung's config at ``r`` refinements (``name``: fdm1, diag,
+    fdm1-coarsecg or fdm1-relaxation3)."""
+    column = {"diag": 0, "fdm1": 1}[name.split("-")[0]]
+    idx = 29 if name == "fdm1-coarsecg" else 4 * r + column
+    with open(os.path.join(LADDER, f"input_{idx:04d}.json")) as f:
+        p = json.load(f)
+    p["n refinements"] = r
+    p["print timing"] = False
+    p["solver"]["best of"] = 1
+    if name == "fdm1-relaxation3":
+        sm = p["preconditioner"]["mg smoother"]
+        p["preconditioner"]["mg smoother"] = {
+            "type": "Relaxation", "degree": 3,
+            "preconditioner": sm["preconditioner"]}
+    return p
+
+
+@pytest.mark.parametrize("name,r,expected_it,against_jax", [
+    ("fdm1", 1, 7, False),
+    ("fdm1", 2, 9, True),
+    ("fdm1", 3, 15, False),
+    ("diag", 2, 15, False),
+    ("fdm1-coarsecg", 2, 9, False),
+    ("fdm1-relaxation3", 2, 8, False),
+])
+def test_large_scaling_ladder_counts(name, r, expected_it, against_jax):
+    params = _ladder(name, r)
+    got = run_config(copy.deepcopy(params), log=_quiet, device="cpu")
+    assert got["converged"] and got["it"] == expected_it
+    assert got["n_dofs"] == (4 * 2 ** r + 1) ** 3
+    if against_jax:
+        ref = jax_run_config(copy.deepcopy(params), log=_quiet)
+        assert ref["converged"] and ref["it"] == expected_it
+        x_ref = np.asarray(ref["solution"])
+        rel = np.linalg.norm(got["solution"].numpy() - x_ref) / np.linalg.norm(
+            x_ref)
+        assert rel < 1e-8
+
+
+def test_probe_ladder_records_on_cpu(capsys):
+    """``probe ladder`` prints one JSON record per rung; a rung whose
+    options are not ported (fdm2: overlap 2) records the error."""
+    from dealii_asm_tpu_torch import probe
+
+    recs = probe.ladder(["fdm1:0-1", "fdm2:1"], best_of=1, device="cpu")
+    assert [(r["smoother"], r["refinement"]) for r in recs] == [
+        ("fdm1", 0), ("fdm1", 1), ("fdm2", 1)]
+    assert recs[1]["it"] == 7 and recs[1]["n_dofs"] == 729
+    assert "ROADMAP item 10" in recs[2]["error"]
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert printed == recs

@@ -11,7 +11,11 @@ Tolerances:
   float64 vectors (jnp promotes), while the port casts the vectors to
   float32 for its kernels, so the Lanczos coefficients differ at float32
   rounding;
-- Chebyshev smoother applies with the same eigenvalue data: rel 1e-12.
+- Chebyshev smoother applies with the same eigenvalue data: rel 1e-12;
+- the sweep coefficient rows and Relaxation's ω from the same estimates:
+  rel 1e-15 (the same float64 recurrences);
+- ``cg_traceable`` on a small dense SPD system: rel 1e-10 (the same
+  float64 recurrence; only the dot-product summation order differs).
 """
 
 import numpy as np
@@ -157,3 +161,51 @@ def test_chebyshev_apply_matches_jax(kind, degree):
                           ref.step(jnp.asarray(x), jnp.asarray(b)))):
         t = np.asarray(theirs)
         assert np.abs(mine.numpy() - t).max() / np.abs(t).max() < 1e-12
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("kind", ["1st kind", "4th kind"])
+def test_sweep_coefficients_match_jax(kind, degree):
+    ref = jcheb.chebyshev_sweep_coefficients(degree, 1.008, 0.912, kind,
+                                             lam_max=1.92)
+    got = chebyshev.chebyshev_sweep_coefficients(degree, 1.008, 0.912, kind,
+                                                 lam_max=1.92)
+    assert len(got) == len(ref) == degree
+    np.testing.assert_allclose(got, ref, rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("smoothing_range", [20.0, 0.5])
+def test_relaxation_omega_matches_jax(smoothing_range):
+    ev = (1.6, 1.92, 40)
+    ref = jcheb.RelaxationPreconditioner(
+        None, None, 10, n_iterations=2, eigenvalues=jcheb.EigenvalueInfo(*ev),
+        smoothing_range=smoothing_range)
+    got = chebyshev.RelaxationPreconditioner(
+        None, None, 10, n_iterations=2,
+        eigenvalues=chebyshev.EigenvalueInfo(*ev),
+        smoothing_range=smoothing_range, device="cpu")
+    assert abs(got.omega / ref.omega - 1) < 1e-15
+    assert got.sweep_coefficients() == ref.sweep_coefficients()
+
+
+@pytest.mark.parametrize("reduction,max_it", [(1e-4, 200), (1e-12, 200),
+                                              (1e-12, 7)])
+def test_cg_traceable_matches_jax(reduction, max_it):
+    A, b = _spd(50, 3)
+    d = 1.0 / np.diag(A)
+    ref = jkrylov.cg_traceable(lambda x: jnp.asarray(A) @ x, jnp.asarray(b),
+                               lambda x: jnp.asarray(d) * x,
+                               reduction=reduction, max_iterations=max_it)
+    At, dt = torch.as_tensor(A), torch.as_tensor(d)
+    got = krylov.cg_traceable(lambda x: At @ x, torch.as_tensor(b),
+                              lambda x: dt * x, reduction=reduction,
+                              max_iterations=max_it)
+    x_ref = np.asarray(ref)
+    assert np.linalg.norm(got.numpy() - x_ref) / np.linalg.norm(x_ref) < 1e-10
+
+
+def test_cg_traceable_zero_rhs_stops_before_dividing():
+    calls = []
+    x = krylov.cg_traceable(lambda v: calls.append(v) or v,
+                            torch.zeros(8, dtype=torch.float32))
+    assert calls == [] and not x.any()
