@@ -7,20 +7,28 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
    limit;
-2. build the kernels from dealii_asm_tpu_torch/kernels/csrc with nvcc;
+2. build the kernels from dealii_asm_tpu_torch/kernels/csrc with nvcc, and
+   print the launch plan of every instantiation of the tiled kernels B and
+   C (tile, threads, shared bytes), held equal to
+   kernels/fdm_patch.py::launch_plan;
 3. every kernel against its plain PyTorch version on the card, on random
    inputs from a seed, with kernel and plain times from CUDA events taken in
    turns (plain, kernel, kernel, plain):
    - A (float32 and float64), B and C on Cartesian meshes at 2^3, 16^3 and
-     64^3 cells Q4 (B and C also at p = 2);
+     64^3 cells Q4 (B and C also at p = 2); at 64^3 Q4 also C timed in
+     turns against A then B back to back (the fusion must pay);
+   - B (without and with xold) and C on meshes of 5 x 7 x 13 and 1 x 9 x 6
+     cells (ragged tiles, a 1-cell axis) at p = 1..7, and on the ladder's
+     stretch-50 mesh at 16^3 cells Q4 (per-coordinate tables), repeated runs
+     bit-identical;
    - E (float64 and float32) on Kershaw meshes (eps 0.3, mapping degree 3)
      at 2^3, 12^3 and 48^3 cells Q4 and at p = 1 and 2, in its vmult and
      residual modes, repeated runs bit-identical;
    - F (float64 and float32) on the balanced hyperball (mapping degree 2)
      at 32, 2,048 and 131,072 cells Q4 and at p = 1 and 2 (2,048 cells), in
      its vmult and residual modes, repeated runs bit-identical;
-   - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4 and at p = 2
-     (16^3), Chebyshev rows of both kinds at degree 2, 3 and 4 and
+   - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4, at p = 2
+     (16^3) and on 5 x 7 x 13 cells Q4, Chebyshev rows of both kinds at degree 2, 3 and 4 and
      Relaxation rows (f1 = 0), from x and from the zero guess (an x full of
      NaN must not matter), repeated runs bit-identical; at 64^3 Q4 and
      degree 2 also the unfused loop (kernels A and B with torch vector
@@ -185,6 +193,9 @@ def print_time(tag: str, n: int, k_ms: float, p_ms: float) -> None:
 
 
 def rel_err(a, b) -> float:
+    """max|a - b| / max|b|, in float64 (a zero b, as on a mesh whose every
+    node is constrained, gives max|a - b| / 1e-300)."""
+    a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
@@ -251,6 +262,31 @@ def sweep_work(cells: int, n: int, p: int, k: int, zero_x: bool) -> tuple:
     vectors = (2 if zero_x else 3) * n * 4
     return (vectors + fb + ab - 4 * 4 * n,
             k * ff + (k - 1 if zero_x else k) * af)
+
+
+def check_plans() -> None:
+    """Phase 2: the launch plan of every instantiation of kernels B and C as
+    the library has it (dat_tile_plan) against launch_plan's mirror."""
+    import ctypes
+
+    from dealii_asm_tpu_torch.kernels.build import load
+    from dealii_asm_tpu_torch.kernels.fdm_patch import KERNEL_IDS, launch_plan
+
+    lib = load()
+    got = (ctypes.c_int * 5)()
+    for kernel, kid in KERNEL_IDS.items():
+        for p in range(1, 8):
+            for itemsize in (4, 8):
+                if lib.dat_tile_plan(kid, p, itemsize, got) != 0:
+                    raise Failed(f"dat_tile_plan({kernel}, {p}, {itemsize})")
+                plan = launch_plan(p, itemsize, kernel)
+                want = (*plan.tile, plan.threads, plan.shared_bytes)
+                print(f"  plan {kernel} p={p} float{8 * itemsize}: tile "
+                      f"{got[0]}x{got[1]}, {got[2]} layers a block, "
+                      f"{got[3]} threads, {got[4]} shared bytes")
+                if tuple(got) != want:
+                    raise Failed(f"plan {kernel} p={p} itemsize={itemsize}: "
+                                 f"library {tuple(got)}, launch_plan {want}")
 
 
 def check_kernels(cells_list, degrees_small, results):
@@ -340,6 +376,16 @@ def check_kernels(cells_list, degrees_small, results):
                 nb, nf = nb + ab - 4 * n, nf + af
             results.setdefault(name, {})[tag] = (
                 float((got - ref).abs().max()), k_ms, p_ms, bound(nb, nf, 4))
+        if c == max(cells_list) and p == 4:
+            # the fusion pays only if one pass beats A then B back to back
+            two = lambda: fdm_patch(banded_laplace(x, op.tables, b),
+                                    asm.tables, om, x)
+            c_ms, ab_ms = in_turns(two, runs["smoother_step"][0], reps)
+            err = rel_err(runs["smoother_step"][0](), two())
+            print(f"    C one pass {c_ms:.4f} ms against A then B "
+                  f"{ab_ms:.4f} ms ({tag}): ratio {ab_ms / c_ms:.3f}, "
+                  f"{'C faster' if c_ms < ab_ms else 'C NOT faster'}; max "
+                  f"rel difference {err:.3e}")
         del op, asm, asm64, op64
         torch.cuda.empty_cache()
 
@@ -397,6 +443,72 @@ def check_merged(cells_list, degrees_small, results):
                 abs_err, k_ms, p_ms, bound(*work, x.element_size()))
             del op
             torch.cuda.empty_cache()
+
+
+def check_tiles(degrees, results):
+    """Phase 3: kernels B (without and with xold) and C against their plain
+    versions on meshes whose cell counts leave ragged tiles and a 1-cell
+    axis, at every degree, and on the ladder's stretch-50 mesh at 16^3 cells
+    Q4, whose per-coordinate tables differ along z."""
+    import numpy as np
+    import torch
+
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels.fdm_patch import (fdm_patch,
+                                                        fdm_patch_plain)
+    from dealii_asm_tpu_torch.kernels.smoother_step import (
+        smoother_step, smoother_step_plain)
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+    from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+
+    rng = np.random.default_rng(SEED + 4)
+    dev = "cuda"
+    cases = ([((5, 7, 13), (1.0, 1.0, 1.0), p, "symm") for p in degrees]
+             + [((1, 9, 6), (1.0, 1.0, 1.0), p, "post") for p in degrees]
+             + [((16, 16, 16), (1.0, 1.0, 50.0), 4, "symm")])
+    for cells, lengths, p, wt in cases:
+        dofs = DofHandler(StructuredMesh(3, cells, lengths=lengths), p)
+        n = dofs.n_dofs
+        x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        b64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        x, b = x64.float(), b64.float()
+        tag = (f"{'x'.join(map(str, cells))} cells Q{p} {wt}"
+               + (", stretch 50" if lengths[2] != 1.0 else "") + f", {n} DoFs")
+        f32 = [LaplaceOperator(dofs, dtype=torch.float32, device=dev).tables,
+               ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32,
+                                 device=dev).tables]
+        f64 = [LaplaceOperator(dofs, dtype=torch.float64, device=dev).tables,
+               ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float64,
+                                 device=dev).tables]
+        om = 0.37
+        runs = {
+            "B": (lambda: fdm_patch(x, f32[1], om),
+                  lambda: fdm_patch_plain(x, f32[1], om),
+                  lambda: fdm_patch_plain(x64, f64[1], om)),
+            "B xold": (lambda: fdm_patch(x, f32[1], om, b),
+                       lambda: fdm_patch_plain(x, f32[1], om, b),
+                       lambda: fdm_patch_plain(x64, f64[1], om, b64)),
+            "C": (lambda: smoother_step(x, b, *f32, om),
+                  lambda: smoother_step_plain(x, b, *f32, om),
+                  lambda: smoother_step_plain(x64, b64, *f64, om)),
+        }
+        for what, (kern, plain, ref64) in runs.items():
+            name = "smoother_step" if what == "C" else "fdm_patch"
+            got, ref, r64 = kern(), plain(), ref64()
+            same = torch.equal(got, kern())
+            err = rel_err(got, ref)
+            e_k, e_p = rel_err(got.double(), r64), rel_err(ref.double(), r64)
+            print(f"  {what} {tag}: max rel err {err:.3e} (bound "
+                  f"{BOUNDS[name]:g}); vs float64: kernel {e_k:.3e}, plain "
+                  f"float32 {e_p:.3e}; repeated runs "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            if not (err <= BOUNDS[name] and e_k <= max(2 * e_p, 1e-4)
+                    and same):
+                raise Failed(f"{what} {tag}: {err:.3e} / {e_k:.3e}, "
+                             f"bit-identical={same}")
+        del f32, f64
+        torch.cuda.empty_cache()
 
 
 def check_lanes(refinements, degrees_small, results):
@@ -488,10 +600,12 @@ def check_sweep(cells_list, results):
             for k in (2, 3, 4) for kind in ("1st kind", "4th kind")]
     rows.append(("relaxation, degree 3", [(0.0, omega)] * 3))
     name, bnd = "smoother_sweep", BOUNDS["smoother_sweep"]
-    cases = [(c, 4) for c in cells_list] + [(cells_list[0], 2)]
-    for c, p in cases:
-        dofs = DofHandler(StructuredMesh(3, (c, c, c)), p)
+    cases = ([((c, c, c), 4) for c in cells_list] + [((cells_list[0],) * 3, 2)]
+             + [((5, 7, 13), 4)])
+    for cells, p in cases:
+        dofs = DofHandler(StructuredMesh(3, cells), p)
         n = dofs.n_dofs
+        c = cells[0] if len(set(cells)) == 1 else None
         reps = 10 if n > 1_000_000 else 50
         op = LaplaceOperator(dofs, dtype=torch.float32, device=dev)
         asm = ASMPreconditioner(dofs, weighting_type="symm",
@@ -502,7 +616,8 @@ def check_sweep(cells_list, results):
         b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
                             device=dev)
         nan_x = torch.full_like(x, float("nan"))
-        tag = f"{c}^3 cells Q{p}, {n} DoFs"
+        shape = f"{c}^3" if c else "x".join(map(str, cells))
+        tag = f"{shape} cells Q{p}, {n} DoFs"
         for label, coefs in rows:
             for zero_x in (False, True):
                 xin = nan_x if zero_x else x
@@ -528,9 +643,10 @@ def check_sweep(cells_list, results):
             k_ms, p_ms = in_turns(plain, kern, reps)
             form = "zero guess" if zero_x else "from x"
             print_time(f"D degree 2 {form} {tag}", n, k_ms, p_ms)
-            work = bound(*sweep_work(c ** 3, n, p, 2, zero_x), 4)
+            work = bound(*sweep_work(int(np.prod(cells)), n, p, 2, zero_x),
+                         4)
             print(f"    bound {work[0]:.4f} ms ({work[1]})")
-            key = f"{c}^3 cells Q{p}, degree 2, {form}, {n} DoFs"
+            key = f"{shape} cells Q{p}, degree 2, {form}, {n} DoFs"
             results.setdefault(name, {})[key] = (
                 float((kern() - plain()).abs().max()), k_ms, p_ms, work)
         if c != max(cells_list) or p != 4:
@@ -763,9 +879,11 @@ def main(argv=None) -> int:
         build.load(verbose=args.ptxas)
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"(nvcc {build.last_build_seconds or 0.0:.1f} s)")
+        check_plans()
         print("== kernels vs plain PyTorch on the card")
         check_kernels([2] if args.quick else [2, 16, 64], [2, 4], results)
         check_merged([2] if args.quick else [2, 12, 48], [1, 2], results)
+        check_tiles(range(1, 8), results)
         check_lanes([0] if args.quick else [0, 2, 4], [1, 2], results)
         check_sweep([2] if args.quick else [16, 64], results)
         if not args.quick:

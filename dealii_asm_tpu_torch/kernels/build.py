@@ -34,7 +34,7 @@ _I = ctypes.c_int
 # argument types of every extern "C" entry (pointers and the stream as void*)
 _BANDED = [_P, _P, _P] + [_P] * 6 + [_I] * 5 + [_P]
 _FDM = [_P, _P, _P] + [_P] * 12 + [_I] * 4
-_STEP = [_P, _P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
+_STEP = [_P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
 # x, b, r, p, out, tmp; the 6 + 12 tables; Cz, Cy, Cx, p; the host array of
 # coefficient rows, k, zero_x, the stream
 _SWEEP = [_P] * 6 + [_P] * 6 + [_P] * 12 + [_I] * 4 + [_P, _I, _I, _P]
@@ -53,6 +53,7 @@ SIGNATURES = {
     "dat_smoother_step_f64": _STEP + [ctypes.c_double, _P],
     "dat_smoother_sweep_f32": _SWEEP,
     "dat_smoother_sweep_f64": _SWEEP,
+    "dat_tile_plan": [_I, _I, _I, _P],
 }
 
 _loaded: ctypes.CDLL | None = None

@@ -13,102 +13,54 @@
 //
 // Replaces: dealii_asm_tpu/ops/pallas/fdm_slab.py FDMSlabKernel.
 //
-// Bound on the H100: the patch transforms cost 6 m^4 multiply-adds per cell
-// (3750 at m = 5), i.e. ~30 per node, against one read and one write of
-// 4 bytes per node: about 15 flops per byte, under the card's float32 balance,
-// so the floor is device-memory traffic.  Overlap is the hard part: windows
-// of neighbouring cells share a node plane, and blocks run in no order.
+// Bound on the H100: device-memory traffic.  The patch transforms cost
+// 6 m^4 + m^3 multiply-adds per cell (3,875 at m = 5), about 15 flops per
+// byte of one read of src and one write of out, under the card's float32
+// balance.
 //
-// Design: deterministic, one launch, no atomics.  A block owns the nodes of
-// one cell at local positions [0, p) per axis (the last cell of an axis also
-// owns position p).  An owned node at local position 0 also receives the
-// contribution of the lower neighbour cell, so the block solves the patch
-// problems of the up to 8 cells c - (dz, dy, dx), d in {0, 1}, each fully in
-// shared memory (m^3 threads, one node each), and sums in registers the
-// entries that land on its own nodes in a fixed order.  Repeated runs are
-// bit-identical.  The price is up to 8x recomputed patch solves; the
-// transforms are cheap next to the memory floor, and halving that factor
-// (tiles of cells sharing their solves) is a later optimisation.
-#include "kernels.h"
+// Design: the tiled body of fdm_tile.cuh.  A block owns a TX x TY tile of
+// cells and marches through a chunk of cell layers along z (at most CZ,
+// fewer on grids too small to fill the card); per layer it gathers the
+// folded window of src (its cells and the lower halo cells) into shared
+// memory, solves every patch of the layer once (the halo patches are the
+// only recomputed ones, (TX+1)(TY+1)/(TX TY); the first layer of a chunk
+// re-solves the layer below for the carry), and each owned node sums its
+// contributions in a fixed order (the carry of the layer below, then the
+// layer's patches by (dy, dx)) and is written once.  No atomics: repeated
+// runs are bit-identical.  Six barriers per layer; at 64^3 Q4 the plan is
+// 8 x 8 cells by 16 layers, 512 threads, two blocks per SM.
+#include "fdm_tile.cuh"
 
 namespace dat {
 namespace {
 
+template <typename T, int M>
+struct PatchConfig {
+  static constexpr TileShape S = tile_shape(kTilePatch, M, sizeof(T));
+  static constexpr int TX = S.tx, TY = S.ty, CZ = S.cz, NT = S.threads;
+  static constexpr int BYTES = tile_elems(kTilePatch, M, sizeof(T)) * sizeof(T);
+  static constexpr int MINB = min_blocks(BYTES, NT);
+};
+
 // MOM selects the momentum epilogue at compile time, so the kScale/kUpdate
-// instantiations are the same code as without it.
+// instantiations carry no trace of it.
 template <typename T, int M, bool MOM>
-__global__ void __launch_bounds__(M * M * M)
+__global__ void __launch_bounds__(PatchConfig<T, M>::NT, PatchConfig<T, M>::MINB)
 fdm_patch_kernel(FDMTables<T> t, const T* __restrict__ src,
                  const T* __restrict__ xold, T* __restrict__ out, T omega,
-                 int mode, Momentum<T> mom) {
-  constexpr int P = M - 1;
-  constexpr int M2 = M * M;
-  constexpr int M3 = M * M * M;
-  __shared__ T s0[M3];
-  __shared__ T s1[M3];
-
-  const int Nx = t.Cx * P + 1, Ny = t.Cy * P + 1;
-  const int tid = threadIdx.x;
-  const int iz = tid / M2;
-  const int iy = (tid / M) % M;
-  const int ix = tid % M;
-  const int cx = blockIdx.x, cy = blockIdx.y, cz = blockIdx.z;
-  const bool own = (ix < P || cx == t.Cx - 1) && (iy < P || cy == t.Cy - 1) &&
-                   (iz < P || cz == t.Cz - 1);
-
-  T acc = T(0);
-  for (int d = 0; d < 8; ++d) {
-    const int dx = d & 1, dy = (d >> 1) & 1, dz = (d >> 2) & 1;
-    const int sx = cx - dx, sy = cy - dy, sz = cz - dz;
-    if (sx < 0 || sy < 0 || sz < 0) continue;  // uniform across the block
-    const T* Vx = t.Vx + sx * M2;
-    const T* Vy = t.Vy + sy * M2;
-    const T* Vz = t.Vz + sz * M2;
-    const int nx = sx * P + ix, ny = sy * P + iy, nz = sz * P + iz;
-
-    // gather the window with the input folds (s0's last readers passed the
-    // barrier after the backward y transform)
-    s0[tid] = src[(static_cast<size_t>(nz) * Ny + ny) * Nx + nx] *
-              t.fin_z[nz] * t.fin_y[ny] * t.fin_x[nx];
-    __syncthreads();
-    T a = T(0);  // forward x: V^T along x
-#pragma unroll
-    for (int j = 0; j < M; ++j) a += Vx[j * M + ix] * s0[iz * M2 + iy * M + j];
-    s1[tid] = a;
-    __syncthreads();
-    a = T(0);  // forward y
-#pragma unroll
-    for (int j = 0; j < M; ++j) a += Vy[j * M + iy] * s1[iz * M2 + j * M + ix];
-    s0[tid] = a;
-    __syncthreads();
-    a = T(0);  // forward z, then the eigenvalue-sum scale
-#pragma unroll
-    for (int j = 0; j < M; ++j) a += Vz[j * M + iz] * s0[j * M2 + iy * M + ix];
-    s1[tid] = a / (t.lz[sz * M + iz] + t.ly[sy * M + iy] + t.lx[sx * M + ix]);
-    __syncthreads();
-    a = T(0);  // backward x: V along x
-#pragma unroll
-    for (int k = 0; k < M; ++k) a += Vx[ix * M + k] * s1[iz * M2 + iy * M + k];
-    s0[tid] = a;
-    __syncthreads();
-    a = T(0);  // backward y
-#pragma unroll
-    for (int k = 0; k < M; ++k) a += Vy[iy * M + k] * s0[iz * M2 + k * M + ix];
-    s1[tid] = a;
-    __syncthreads();
-    // backward z, only at the entries that land on this block's nodes
-    const int qx = ix + P * dx, qy = iy + P * dy, qz = iz + P * dz;
-    if (own && qx < M && qy < M && qz < M) {
-      a = T(0);
-#pragma unroll
-      for (int k = 0; k < M; ++k) a += Vz[qz * M + k] * s1[k * M2 + qy * M + qx];
-      acc += a;
-    }
-  }
-  if (own) {
-    const int nx = cx * P + ix, ny = cy * P + iy, nz = cz * P + iz;
-    const size_t idx = (static_cast<size_t>(nz) * Ny + ny) * Nx + nx;
-    const T val = omega * (acc * (t.fout_z[nz] * t.fout_y[ny] * t.fout_x[nx]));
+                 int mode, Momentum<T> mom, int chunk) {
+  using C = PatchConfig<T, M>;
+  using Tile = FDMTile<T, M, C::TX, C::TY, C::NT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tile tile;
+  tile.carve(reinterpret_cast<T*>(smem_raw), Tile::BUF);
+  tile.init(t);
+  const int cz_begin = blockIdx.z * chunk;
+  const int cz_end = t.Cz - cz_begin < chunk ? t.Cz : cz_begin + chunk;
+  const int first = cz_begin > 0 ? cz_begin - 1 : 0;  // uniform
+  __syncthreads();  // the tile's tables
+  auto epi = [&](size_t idx, T v) {
+    const T val = omega * v;
     if constexpr (MOM) {
       // p is read and written only here, by the thread that owns idx; it is
       // not read where read_p is 0 (the first sub-step: p may be garbage)
@@ -118,16 +70,32 @@ fdm_patch_kernel(FDMTables<T> t, const T* __restrict__ src,
     } else {
       out[idx] = mode == kUpdate ? xold[idx] + val : val;
     }
+  };
+  for (int cz = first; cz < cz_end; ++cz) {
+    const int par = (cz - first) & 1;
+    tile.stage_layer(t, cz, par);
+    tile.gather(src, t, cz);
+    __syncthreads();
+    tile.transforms(tile.b, par);
+    tile.sum(cz, par, cz > first, cz >= cz_begin, cz == t.Cz - 1, epi);
   }
 }
 
 template <typename T, int M, bool MOM>
-void launch_m(const FDMTables<T>& t, const T* src, const T* xold, T* out,
-              T omega, int mode, const Momentum<T>& mom,
-              cudaStream_t stream) {
-  const dim3 grid(t.Cx, t.Cy, t.Cz);
-  fdm_patch_kernel<T, M, MOM><<<grid, M * M * M, 0, stream>>>(
-      t, src, xold, out, omega, mode, mom);
+cudaError_t launch_m(const FDMTables<T>& t, const T* src, const T* xold,
+                     T* out, T omega, int mode, const Momentum<T>& mom,
+                     cudaStream_t stream) {
+  using C = PatchConfig<T, M>;
+  auto kern = fdm_patch_kernel<T, M, MOM>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (attr != cudaSuccess) return attr;
+  const int tx = (t.Cx + C::TX - 1) / C::TX, ty = (t.Cy + C::TY - 1) / C::TY;
+  const int chunk = chunk_layers(tx * ty, t.Cz, C::CZ, C::MINB);
+  const dim3 grid(tx, ty, (t.Cz + chunk - 1) / chunk);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(t, src, xold, out, omega, mode, mom,
+                                          chunk);
+  return cudaGetLastError();
 }
 
 template <typename T, bool MOM>
@@ -135,30 +103,15 @@ cudaError_t launch(const FDMTables<T>& t, const T* src, const T* xold, T* out,
                    T omega, int mode, const Momentum<T>& mom,
                    cudaStream_t stream) {
   switch (t.p) {
-    case 1:
-      launch_m<T, 2, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 2:
-      launch_m<T, 3, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 3:
-      launch_m<T, 4, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 4:
-      launch_m<T, 5, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 5:
-      launch_m<T, 6, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 6:
-      launch_m<T, 7, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
-    case 7:
-      launch_m<T, 8, MOM>(t, src, xold, out, omega, mode, mom, stream);
-      break;
+    case 1: return launch_m<T, 2, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 2: return launch_m<T, 3, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 3: return launch_m<T, 4, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 4: return launch_m<T, 5, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 5: return launch_m<T, 6, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 6: return launch_m<T, 7, MOM>(t, src, xold, out, omega, mode, mom, stream);
+    case 7: return launch_m<T, 8, MOM>(t, src, xold, out, omega, mode, mom, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -234,4 +187,20 @@ extern "C" int dat_fdm_patch_f64(
   return fdm_entry<double>(src, xold, out, Vx, Vy, Vz, lx, ly, lz, fin_x,
                            fin_y, fin_z, fout_x, fout_y, fout_z, Cz, Cy, Cx,
                            p, omega, mode, stream);
+}
+
+// The launch plan of kernel `kernel` (0: B, 1: C) at degree p for elements
+// of itemsize bytes: out[0..4] = tile x, tile y, chunk z, threads, dynamic
+// shared bytes.  kernels/fdm_patch.py::launch_plan mirrors it.
+extern "C" int dat_tile_plan(int kernel, int p, int itemsize, int* out) {
+  if (p < 1 || p > 7 || (kernel != dat::kTilePatch && kernel != dat::kTileStep) ||
+      (itemsize != 4 && itemsize != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dat::TileShape s = dat::tile_shape(kernel, p + 1, itemsize);
+  out[0] = s.tx;
+  out[1] = s.ty;
+  out[2] = s.cz;
+  out[3] = s.threads;
+  out[4] = dat::tile_elems(kernel, p + 1, itemsize) * itemsize;
+  return 0;
 }

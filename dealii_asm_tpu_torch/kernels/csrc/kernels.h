@@ -1,9 +1,10 @@
 // Shared declarations of the port's hand-written Hopper kernels.
 //
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
-// fdm_patch.cu, lanes_laplace.cu, merged_laplace.cu; the last two share the
-// per-cell body of sumfac_cell.cuh); smoother_step.cu and smoother_sweep.cu
-// compose the host launchers of the first two.  Every
+// fdm_patch.cu, smoother_step.cu, lanes_laplace.cu, merged_laplace.cu;
+// fdm_patch.cu and smoother_step.cu share the tiled FDM body of
+// fdm_tile.cuh, the last two the per-cell body of sumfac_cell.cuh);
+// smoother_sweep.cu composes the host launchers of A and B.  Every
 // extern "C" entry returns cudaGetLastError() after its launches, so the
 // Python wrapper can raise on a refused launch.
 //

@@ -17,15 +17,17 @@
 //
 // Bound on the H100: a one-pass sweep would move three grid streams (x, b
 // in; x' out; two under zero_x) and do k times kernel C's operations, which
-// at Q4 puts operations and bytes at about the same time.  This simple
-// version runs each sub-step as two launches with no torch operation
-// between them, all on the caller's stream: kernel A's device code with the
-// residual epilogue (r = b - A x_{s-1}; skipped at s = 0 under zero_x),
-// then kernel B's device code with the kMomentum epilogue, which reads r,
-// x_{s-1} and p and writes p and x_s in one pass.  The iterates ping-pong
-// between two buffers so that the last sub-step writes the output; p is
-// updated in place.  About k times kernel C's traffic; keeping the
-// iterates on chip across sub-steps is later work.
+// at Q4 puts operations and bytes at about the same time.  This version
+// runs each sub-step as two launches with no torch operation between them,
+// all on the caller's stream: kernel A's device code with the residual
+// epilogue (r = b - A x_{s-1}; skipped at s = 0 under zero_x), then kernel
+// B's tiled device code (fdm_patch.cu, fdm_tile.cuh: each patch solved once
+// per sub-step) with the kMomentum epilogue, which reads r, x_{s-1} and p
+// and writes p and x_s in one pass.  The iterates ping-pong between two
+// buffers so that the last sub-step writes the output; p is updated in
+// place.  About k times the traffic of A then B; a one-pass sweep (kernel
+// C's body with the kMomentum epilogue, carried across sub-steps) is later
+// work.
 #include "kernels.h"
 
 namespace {

@@ -1,11 +1,12 @@
 """Kernel C: one smoother step x' = x + ω·P⁻¹(b − A x) (csrc/smoother_step.cu).
 
 Replaces the TPU kernel ``dealii_asm_tpu/ops/pallas/smoother_step.py``
-``SmootherStepKernel.step``.  Two launches with no torch operation between
-them: kernel A's device code with the residual epilogue, then kernel B's
-device code with the update epilogue.  The whole step is float32 (the TPU
-kernel's FDM stage is bfloat16), so it equals the composition of A and B.
-Constrained nodes keep x.
+``SmootherStepKernel.step``.  One launch: each block computes the residual
+b − A x on its tile's window in shared memory and applies kernel B's tiled
+patch body to it with the update epilogue, so r never reaches device memory
+(``launch_plan(p, itemsize, "smoother_step")`` gives its tiles).  The whole
+step is float32 (the TPU kernel's FDM stage is bfloat16), so it equals the
+composition of kernels A and B.  Constrained nodes keep x.
 """
 
 from __future__ import annotations
@@ -38,11 +39,10 @@ def smoother_step(x: torch.Tensor, b: torch.Tensor, a: BandedTables,
     _check_vec(b, "b", a.Mdiags[0], n)
     _check_vec(x, "x", f.V[0], n)
     fn = _kernel_fn("smoother_step", x.dtype)
-    r = torch.empty_like(x)
     out = torch.empty_like(x)
     tabs = [t for d in range(3) for t in (a.Mdiags[d], a.Kdiags[d])]
     cz, cy, cx = f.cells
-    err = fn(x.data_ptr(), b.data_ptr(), r.data_ptr(), out.data_ptr(),
+    err = fn(x.data_ptr(), b.data_ptr(), out.data_ptr(),
              *[t.data_ptr() for t in tabs], *_pointers(f), cz, cy, cx, f.p,
              float(omega), torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "smoother_step")
