@@ -8,32 +8,40 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
    limit;
 2. build the kernels from dealii_asm_tpu_torch/kernels/csrc with nvcc, and
-   print the launch plan of every instantiation of the tiled kernels B and
-   C (tile, threads, shared bytes), held equal to
+   print the launch plan of every instantiation of kernel A and of the
+   tiled kernels B and C (tile, threads, shared bytes), held equal to
+   kernels/banded_laplace.py::launch_plan and
    kernels/fdm_patch.py::launch_plan;
 3. every kernel against its plain PyTorch version on the card, on random
    inputs from a seed, with kernel and plain times from CUDA events taken in
    turns (plain, kernel, kernel, plain):
    - A (float32 and float64), B and C on Cartesian meshes at 2^3, 16^3 and
-     64^3 cells Q4 (B and C also at p = 2); at 64^3 Q4 also C timed in
-     turns against A then B back to back (the fusion must pay);
-   - B (without and with xold) and C on meshes of 5 x 7 x 13 and 1 x 9 x 6
-     cells (ragged tiles, a 1-cell axis) at p = 1..7, and on the ladder's
-     stretch-50 mesh at 16^3 cells Q4 (per-coordinate tables), repeated runs
-     bit-identical;
+     64^3 cells Q4 (B and C also at p = 2, and in float64 at 2^3 and 16^3);
+     at 64^3 Q4 also C timed in turns against A then B back to back (the
+     fusion must pay);
+   - A (both precisions, vmult and residual), B (without and with xold)
+     and C on meshes of 5 x 7 x 13 and 1 x 9 x 6 cells (ragged tiles, a
+     1-cell axis) at p = 1..7, B and C also in float64 on 5 x 7 x 13 cells
+     and with the weightings none and pre at p = 2 and 4, and on the
+     ladder's stretch-50 mesh at 16^3 cells Q4 (per-coordinate tables),
+     repeated runs bit-identical;
    - E (float64 and float32) on Kershaw meshes (eps 0.3, mapping degree 3)
      at 2^3, 12^3 and 48^3 cells Q4 and at p = 1 and 2, in its vmult and
      residual modes, repeated runs bit-identical;
    - F (float64 and float32) on the balanced hyperball (mapping degree 2)
      at 32, 2,048 and 131,072 cells Q4 and at p = 1 and 2 (2,048 cells), in
      its vmult and residual modes, repeated runs bit-identical;
-   - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4, at p = 2
-     (16^3) and on 5 x 7 x 13 cells Q4, Chebyshev rows of both kinds at degree 2, 3 and 4 and
-     Relaxation rows (f1 = 0), from x and from the zero guess (an x full of
-     NaN must not matter), repeated runs bit-identical; at 64^3 Q4 and
-     degree 2 also the unfused loop (kernels A and B with torch vector
-     operations) and, for Relaxation rows, two unrolled kernel-C steps,
-     timed beside D;
+   - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4 and Q2 and
+     on 5 x 7 x 13 cells Q4, Chebyshev rows of both kinds at
+     degree 2, 3 and 4 and Relaxation rows (f1 = 0), from x and from the
+     zero guess (an x full of NaN must not matter), repeated runs
+     bit-identical; in float64 at 16^3 cells Q4 (degree 2 and 3); with the
+     weightings none and pre on 5 x 7 x 13 cells at p = 2 and 4; two
+     launches per sub-step (kernel A's residual, then kernel B's momentum
+     step; one for the zero guess's first), read by torch.profiler; at
+     degree 2 D timed at Q4 and Q2, and at 64^3 Q4 in turns against the
+     unfused loop (kernels A and B with torch vector operations) and, for
+     Relaxation rows, two unrolled kernel-C steps;
 4. the flagship solve (experiments/e2e_aniso_q4.json, 64^3 cells Q4,
    16,974,593 DoFs) through run_config on the card: converged in 5 CG
    iterations, with A, B and C launched on that path; and the same config at
@@ -144,11 +152,14 @@ PEAK_FLOP_S = {4: 67e12, 8: 34e12}
 # - D float32: 1e-4, C's bound: each sub-step is A's and B's arithmetic
 #   against the plain composition's, as in C, and the Chebyshev rows keep
 #   the sub-steps' rounding at the size of one step's.
+# - B, C and D float64: 1e-12, the same float64 products in another order
+#   and grouping (the float32 bounds above cover float32 rounding).
 BOUNDS = {"banded_laplace_f32": 1e-5, "banded_laplace_f64": 1e-12,
           "fdm_patch": 1e-4, "smoother_step": 1e-4,
           "merged_laplace_f64": 1e-12, "merged_laplace_f32": 1e-5,
           "lanes_laplace_f64": 1e-12, "lanes_laplace_f32": 1e-5,
           "smoother_sweep": 1e-4}
+BOUND_F64 = 1e-12
 
 
 class Failed(Exception):
@@ -265,15 +276,30 @@ def sweep_work(cells: int, n: int, p: int, k: int, zero_x: bool) -> tuple:
 
 
 def check_plans() -> None:
-    """Phase 2: the launch plan of every instantiation of kernels B and C as
-    the library has it (dat_tile_plan) against launch_plan's mirror."""
+    """Phase 2: the launch plan of every instantiation of kernels A, B and
+    C as the library has it (dat_band_plan, dat_tile_plan) against
+    launch_plan's mirrors."""
     import ctypes
 
+    from dealii_asm_tpu_torch.kernels import banded_laplace
     from dealii_asm_tpu_torch.kernels.build import load
     from dealii_asm_tpu_torch.kernels.fdm_patch import KERNEL_IDS, launch_plan
 
     lib = load()
     got = (ctypes.c_int * 5)()
+    for p in range(1, 8):
+        for itemsize in (4, 8):
+            if lib.dat_band_plan(p, itemsize, got) != 0:
+                raise Failed(f"dat_band_plan({p}, {itemsize})")
+            plan = banded_laplace.launch_plan(p, itemsize)
+            want = (*plan.tile, plan.threads, plan.shared_bytes)
+            print(f"  plan banded_laplace p={p} float{8 * itemsize}: tile "
+                  f"{got[0]}x{got[1]} nodes, {got[2]} planes a block, "
+                  f"{got[3]} threads, {got[4]} shared bytes; grid at 64^3 "
+                  f"cells {plan.grid((64 * p + 1,) * 3)}")
+            if tuple(got) != want:
+                raise Failed(f"plan banded_laplace p={p} itemsize={itemsize}:"
+                             f" library {tuple(got)}, launch_plan {want}")
     for kernel, kid in KERNEL_IDS.items():
         for p in range(1, 8):
             for itemsize in (4, 8):
@@ -376,6 +402,14 @@ def check_kernels(cells_list, degrees_small, results):
                 nb, nf = nb + ab - 4 * n, nf + af
             results.setdefault(name, {})[tag] = (
                 float((got - ref).abs().max()), k_ms, p_ms, bound(nb, nf, 4))
+        if c < 64:  # B and C in float64 against their plain float64 versions
+            check_f64({
+                "B": (lambda: fdm_patch(x64, asm64.tables, om),
+                      lambda: fdm_patch_plain(x64, asm64.tables, om)),
+                "C": (lambda: smoother_step(x64, b64, op64.tables,
+                                            asm64.tables, om),
+                      lambda: smoother_step_plain(x64, b64, op64.tables,
+                                                  asm64.tables, om))}, tag)
         if c == max(cells_list) and p == 4:
             # the fusion pays only if one pass beats A then B back to back
             two = lambda: fdm_patch(banded_laplace(x, op.tables, b),
@@ -388,6 +422,23 @@ def check_kernels(cells_list, degrees_small, results):
                   f"rel difference {err:.3e}")
         del op, asm, asm64, op64
         torch.cuda.empty_cache()
+
+
+def check_f64(runs: dict, tag: str) -> None:
+    """Each float64 kernel of ``runs`` (name -> (kernel, plain)) within
+    BOUND_F64 of its plain float64 version, repeated runs bit-identical."""
+    import torch
+
+    for what, (kern, plain) in runs.items():
+        got = kern()
+        same = torch.equal(got, kern())
+        err = rel_err(got, plain())
+        print(f"  {what} float64 {tag}: max rel err {err:.3e} (bound "
+              f"{BOUND_F64:g}); repeated runs "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not (err <= BOUND_F64 and same):
+            raise Failed(f"{what} float64 {tag}: {err:.3e}, "
+                         f"bit-identical={same}")
 
 
 def check_merged(cells_list, degrees_small, results):
@@ -446,14 +497,17 @@ def check_merged(cells_list, degrees_small, results):
 
 
 def check_tiles(degrees, results):
-    """Phase 3: kernels B (without and with xold) and C against their plain
-    versions on meshes whose cell counts leave ragged tiles and a 1-cell
-    axis, at every degree, and on the ladder's stretch-50 mesh at 16^3 cells
-    Q4, whose per-coordinate tables differ along z."""
+    """Phase 3: kernels A (both precisions), B (without and with xold) and
+    C against their plain versions on meshes whose cell counts leave ragged
+    tiles and a 1-cell axis, at every degree, B and C also in float64 and
+    under the weightings none and pre, and on the ladder's stretch-50 mesh
+    at 16^3 cells Q4, whose per-coordinate tables differ along z."""
     import numpy as np
     import torch
 
     from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels.banded_laplace import (
+        banded_laplace, banded_laplace_plain)
     from dealii_asm_tpu_torch.kernels.fdm_patch import (fdm_patch,
                                                         fdm_patch_plain)
     from dealii_asm_tpu_torch.kernels.smoother_step import (
@@ -464,8 +518,11 @@ def check_tiles(degrees, results):
 
     rng = np.random.default_rng(SEED + 4)
     dev = "cuda"
-    cases = ([((5, 7, 13), (1.0, 1.0, 1.0), p, "symm") for p in degrees]
-             + [((1, 9, 6), (1.0, 1.0, 1.0), p, "post") for p in degrees]
+    unit = (1.0, 1.0, 1.0)
+    cases = ([((5, 7, 13), unit, p, "symm") for p in degrees]
+             + [((1, 9, 6), unit, p, "post") for p in degrees]
+             + [((5, 7, 13), unit, p, wt) for wt in ("none", "pre")
+                for p in (2, 4)]
              + [((16, 16, 16), (1.0, 1.0, 50.0), 4, "symm")])
     for cells, lengths, p, wt in cases:
         dofs = DofHandler(StructuredMesh(3, cells, lengths=lengths), p)
@@ -507,6 +564,30 @@ def check_tiles(degrees, results):
                     and same):
                 raise Failed(f"{what} {tag}: {err:.3e} / {e_k:.3e}, "
                              f"bit-identical={same}")
+        if cells == (5, 7, 13):
+            check_f64({
+                "B": (lambda: fdm_patch(x64, f64[1], om),
+                      lambda: fdm_patch_plain(x64, f64[1], om)),
+                "B xold": (lambda: fdm_patch(x64, f64[1], om, b64),
+                           lambda: fdm_patch_plain(x64, f64[1], om, b64)),
+                "C": (lambda: smoother_step(x64, b64, *f64, om),
+                      lambda: smoother_step_plain(x64, b64, *f64, om))}, tag)
+        if wt in ("symm", "post") and lengths == unit:
+            # kernel A's ragged tiles and chunks
+            for tabs, u, rhs, name in ((f32[0], x, b, "banded_laplace_f32"),
+                                       (f64[0], x64, b64,
+                                        "banded_laplace_f64")):
+                for r in (None, rhs):
+                    got = banded_laplace(u, tabs, r)
+                    same = torch.equal(got, banded_laplace(u, tabs, r))
+                    err = rel_err(got, banded_laplace_plain(u, tabs, r))
+                    what = "residual" if r is not None else "vmult"
+                    print(f"  A {name} {what:8s} {tag}: max rel err "
+                          f"{err:.3e} (bound {BOUNDS[name]:g}); repeated "
+                          f"runs {'bit-identical' if same else 'DIFFER'}")
+                    if not (err <= BOUNDS[name] and same):
+                        raise Failed(f"{name} {what} {tag}: {err:.3e}, "
+                                     f"bit-identical={same}")
         del f32, f64
         torch.cuda.empty_cache()
 
@@ -568,10 +649,36 @@ def check_lanes(refinements, degrees_small, results):
             torch.cuda.empty_cache()
 
 
+def device_kernels(fn, tries: int = 3) -> list:
+    """The names of the device kernels one call of ``fn`` launches, in
+    order (torch.profiler).  A trace with no kernel at all is the
+    profiler's loss (fn launches at least one, and the profiler has
+    returned such a trace on the H100 after good ones), so it is taken
+    again, at most ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memset" not in e.name.lower()
+                 and "memcpy" not in e.name.lower()]
+        if names:
+            break
+    return names
+
+
 def check_sweep(cells_list, results):
-    """Phase 3: kernel D vs its plain version on Cartesian meshes, and at
-    the largest Q4 size its time beside the unfused loop and beside unrolled
-    kernel-C steps."""
+    """Phase 3: kernel D vs its plain version on Cartesian meshes (float32;
+    float64 and the weightings none and pre too), its launches per sweep,
+    its time at Q4 and Q2 (the fdm1 ladder's level degrees), and at the
+    largest Q4 size its time beside the unfused loop and unrolled kernel-C
+    steps."""
     import numpy as np
     import torch
 
@@ -599,26 +706,33 @@ def check_sweep(cells_list, results):
              chebyshev_sweep_coefficients(k, theta, delta, kind, lam_max=mx))
             for k in (2, 3, 4) for kind in ("1st kind", "4th kind")]
     rows.append(("relaxation, degree 3", [(0.0, omega)] * 3))
-    name, bnd = "smoother_sweep", BOUNDS["smoother_sweep"]
-    cases = ([((c, c, c), 4) for c in cells_list] + [((cells_list[0],) * 3, 2)]
-             + [((5, 7, 13), 4)])
-    for cells, p in cases:
+    name = "smoother_sweep"
+    c16, cmax = cells_list[0], max(cells_list)
+    # (cells, p, weighting, dtype, rows)
+    cases = ([((c, c, c), 4, "symm", torch.float32, rows) for c in cells_list]
+             + [((c, c, c), 2, "symm", torch.float32, rows)
+                for c in sorted({c16, cmax})]
+             + [((5, 7, 13), 4, "symm", torch.float32, rows)]
+             + [((5, 7, 13), p, wt, torch.float32, rows)
+                for wt in ("none", "pre") for p in (2, 4)]
+             + [((c16,) * 3, 4, "symm", torch.float64,
+                 [r for r in rows if "degree 4" not in r[0]])])
+    for cells, p, wt, dt, case_rows in cases:
         dofs = DofHandler(StructuredMesh(3, cells), p)
         n = dofs.n_dofs
         c = cells[0] if len(set(cells)) == 1 else None
         reps = 10 if n > 1_000_000 else 50
-        op = LaplaceOperator(dofs, dtype=torch.float32, device=dev)
-        asm = ASMPreconditioner(dofs, weighting_type="symm",
-                                dtype=torch.float32, device=dev)
+        op = LaplaceOperator(dofs, dtype=dt, device=dev)
+        asm = ASMPreconditioner(dofs, weighting_type=wt, dtype=dt, device=dev)
         a, f = op.tables, asm.tables
-        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
-                            device=dev)
-        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
-                            device=dev)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        b = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
         nan_x = torch.full_like(x, float("nan"))
         shape = f"{c}^3" if c else "x".join(map(str, cells))
-        tag = f"{shape} cells Q{p}, {n} DoFs"
-        for label, coefs in rows:
+        bnd = BOUNDS[name] if dt == torch.float32 else BOUND_F64
+        tag = (f"{shape} cells Q{p}{'' if wt == 'symm' else ' ' + wt}"
+               f"{' float64' if dt == torch.float64 else ''}, {n} DoFs")
+        for label, coefs in case_rows:
             for zero_x in (False, True):
                 xin = nan_x if zero_x else x
                 got = smoother_sweep(xin, b, a, f, coefs, zero_x)
@@ -635,6 +749,9 @@ def check_sweep(cells_list, results):
                     raise Failed(f"{name} {label} zero_x={zero_x} {tag}: "
                                  f"{err:.3e}, bit-identical={same}, "
                                  f"finite={finite}")
+        if dt != torch.float32 or wt != "symm" or cells == (5, 7, 13):
+            del op, asm
+            continue
         coefs = rows[0][1]  # 1st kind, degree 2: the fdm1 ladder's sweep
         for zero_x in (False, True):
             xin = None if zero_x else x
@@ -649,7 +766,16 @@ def check_sweep(cells_list, results):
             key = f"{shape} cells Q{p}, degree 2, {form}, {n} DoFs"
             results.setdefault(name, {})[key] = (
                 float((kern() - plain()).abs().max()), k_ms, p_ms, work)
-        if c != max(cells_list) or p != 4:
+            # two launches per sub-step (A's residual, B's momentum step),
+            # one for the zero guess's first sub-step
+            names = device_kernels(kern)
+            want = 2 * len(coefs) - (1 if zero_x else 0)
+            print(f"    launches per sweep {tag} {form}: D {len(names)} "
+                  f"({', '.join(nm.split('<')[0] for nm in names)})")
+            if len(names) != want:
+                raise Failed(f"{name} {form} {tag}: {len(names)} launches for "
+                             f"{len(coefs)} sub-steps, want {want}")
+        if c != cmax or p != 4:
             continue
 
         def unfused():

@@ -12,6 +12,12 @@ float64 matvec, double-single on the TPU, native float64 here).
 
 It launches the CUDA kernel for a CUDA tensor and runs
 ``banded_laplace_plain`` for a CPU tensor.
+
+The kernel (``csrc/banded_plane.cuh``) gives a block a WX × WY tile of
+output nodes and a chunk of output planes; tiles and chunks cover the nodes
+[0, N − 1) of each axis and the last block of an axis also writes the
+closing (constrained) node N − 1.  ``launch_plan`` mirrors its tile shapes,
+shared-memory layout, chunk rule and grid.
 """
 
 from __future__ import annotations
@@ -25,6 +31,71 @@ from . import LAUNCHES
 from .build import check, load
 
 _MODE = {False: 0, True: 1}  # vmult, residual
+SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory (1 KB more per block)
+H100_SMS = 132
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """Kernel A's launch at degree p (``band_shape`` and ``band_elems`` of
+    ``csrc/banded_plane.cuh``): a block per (wx, wy) tile of nodes and chunk
+    of at most cz planes, ``threads`` threads, ``shared_bytes`` of dynamic
+    shared memory, ``minb`` its ``__launch_bounds__`` minimum of blocks per
+    SM."""
+
+    p: int
+    itemsize: int
+    tile: tuple  # (wx, wy, cz)
+    threads: int
+    minb: int
+    shared_bytes: int
+
+    def chunk(self, grid_shape: tuple, sms: int = H100_SMS) -> int:
+        """Planes per block (``chunk_layers`` over the Nz − 1 core planes):
+        the largest of cz, cz/2, ... that gives the card 90% of the
+        blocks it holds at ``minb`` a SM."""
+        nz, ny, nx = grid_shape
+        wx, wy, cz = self.tile
+        tiles = ((nx - 2) // wx + 1) * ((ny - 2) // wy + 1)
+        want = -(-9 * sms * self.minb // 10)
+        while cz > 1 and tiles * -(-(nz - 1) // cz) < want:
+            cz = (cz + 1) // 2
+        return cz
+
+    def grid(self, grid_shape: tuple, sms: int = H100_SMS) -> tuple:
+        """CUDA grid (x, y, z) for an (Nz, Ny, Nx) node grid."""
+        nz, ny, nx = grid_shape
+        wx, wy, _ = self.tile
+        return ((nx - 2) // wx + 1, (ny - 2) // wy + 1,
+                (nz - 2) // self.chunk(grid_shape, sms) + 1)
+
+
+def launch_plan(p: int, itemsize: int) -> BandPlan:
+    """Kernel A's launch plan at degree p for float32 (itemsize 4) or
+    float64 (8)."""
+    if not 1 <= p <= 7 or itemsize not in (4, 8):
+        raise ValueError(f"launch_plan: no plan for p={p} itemsize={itemsize}")
+    if itemsize == 4 and p == 4:
+        wx, wy, cz, threads, minb = 64, 16, 64, 256, 2
+    elif itemsize == 8 and p >= 5:
+        wx, wy, cz, threads, minb = 32, 8, 64, 256, 2
+    else:
+        wx, wy, cz, threads, minb = 32, 16, 64, 256, 2
+    band, hy, hx = 2 * p + 1, wy + 2 * p, wx + 2 * p
+    # two raw planes with the band halo, two x-band planes of pairs, the
+    # x, y and z tables (cz + 1 own planes, 2p on each side)
+    elems = (2 * _pad4(hy * _odd(hx)) + 4 * hy * wx
+             + 2 * band * (wx + wy + cz + 1 + 4 * p))
+    return BandPlan(p, itemsize, (wx, wy, cz), threads, minb,
+                    elems * itemsize)
 
 
 @dataclass

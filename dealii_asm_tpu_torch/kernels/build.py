@@ -53,6 +53,7 @@ SIGNATURES = {
     "dat_smoother_step_f64": _STEP + [ctypes.c_double, _P],
     "dat_smoother_sweep_f32": _SWEEP,
     "dat_smoother_sweep_f64": _SWEEP,
+    "dat_band_plan": [_I, _I, _P],
     "dat_tile_plan": [_I, _I, _I, _P],
 }
 

@@ -3,10 +3,11 @@
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
 // fdm_patch.cu, smoother_step.cu, lanes_laplace.cu, merged_laplace.cu;
 // fdm_patch.cu and smoother_step.cu share the tiled FDM body of
-// fdm_tile.cuh, the last two the per-cell body of sumfac_cell.cuh);
-// smoother_sweep.cu composes the host launchers of A and B.  Every
-// extern "C" entry returns cudaGetLastError() after its launches, so the
-// Python wrapper can raise on a refused launch.
+// fdm_tile.cuh, banded_laplace.cu and smoother_step.cu the plane pipeline
+// pieces of banded_plane.cuh, the last two the per-cell body of
+// sumfac_cell.cuh); smoother_sweep.cu composes the host launchers of A and
+// B.  Every extern "C" entry returns cudaGetLastError() after its launches,
+// so the Python wrapper can raise on a refused launch.
 //
 // Layout: the lattice kernels' vectors are flat lexicographic grids
 // (Nz, Ny, Nx), x fastest; kernel F's are numbered by its DoF table.

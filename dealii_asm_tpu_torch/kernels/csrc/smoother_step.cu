@@ -28,42 +28,10 @@
 // one.  A thread keeps the same window nodes for the y band, the ring and
 // the z contraction, so those need no barrier.  Rounding: the same float
 // products as A then B, summed in another order.
-#include "fdm_tile.cuh"
+#include "banded_plane.cuh"
 
 namespace dat {
 namespace {
-
-// Pairs of T in one 8- or 16-byte load.
-template <typename T>
-struct Pair2;
-template <>
-struct Pair2<float> {
-  using type = float2;
-};
-template <>
-struct Pair2<double> {
-  using type = double2;
-};
-
-// Asynchronous copy of one element from device to shared memory, zero
-// where pred is false (cp.async; the caller waits with copy_async_wait and
-// a barrier).  A host compilation pass sees a plain copy.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, bool pred) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"(sizeof(T)), "r"(pred ? int(sizeof(T)) : 0));
-#else
-  *dst = pred ? *src : T(0);
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
-}
 
 template <typename T, int M>
 struct StepConfig {

@@ -25,9 +25,12 @@
 // per sub-step) with the kMomentum epilogue, which reads r, x_{s-1} and p
 // and writes p and x_s in one pass.  The iterates ping-pong between two
 // buffers so that the last sub-step writes the output; p is updated in
-// place.  About k times the traffic of A then B; a one-pass sweep (kernel
-// C's body with the kMomentum epilogue, carried across sub-steps) is later
-// work.
+// place.  One pass per sub-step (r kept on chip) was timed against this on
+// the H100, as kernel C's body with the kMomentum epilogue and as a
+// warp-specialised kernel overlapping the residual with the solve: both
+// were slower at 64^3 Q4 and Q2 (PERF.md), because they recompute r on the
+// tile's whole patch window and A and B are not bound by device memory, so
+// the read and write of r that the one pass saves cost less than that.
 #include "kernels.h"
 
 namespace {

@@ -13,6 +13,11 @@ make it a Chebyshev smoother apply; f1 ≡ 0 makes it Richardson steps.
 Constrained nodes keep x (0 under ``zero_x``).  The whole sweep is float32
 (the TPU kernel's FDM stage and residual ring are bfloat16), so it equals
 the composition of kernels A and B, ``smoother_sweep_plain``.
+
+On the card a sub-step with a residual is two launches, kernel A's
+residual into r and kernel B's momentum step; the zero guess's first
+sub-step is the momentum step alone.  A degree-k sweep is 2k launches
+(2k − 1 from zero).
 """
 
 from __future__ import annotations

@@ -240,8 +240,18 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
                      one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
 
 
-def _check_unported_options(params: dict) -> None:
-    if get_param(params, "n devices", 1) not in (1, "1"):
+def n_devices(params: dict, device: torch.device) -> int:
+    """The config's "n devices": an integer, or "auto" for every visible
+    device of the run's type (``torch.cuda.device_count()`` on CUDA, 1 on
+    the CPU), as the JAX package takes its visible device count."""
+    value = get_param(params, "n devices", 1)
+    if value == "auto":
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return int(value)
+
+
+def _check_unported_options(params: dict, device: torch.device) -> None:
+    if n_devices(params, device) > 1:
         raise NotImplementedError(
             "'n devices' > 1 is not ported yet (ROADMAP item 14)")
     if get_param(params, "operator mapping type", ""):
@@ -264,7 +274,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     t_setup = time.perf_counter()
     device = resolve_device(device)
     assert_no_tf32()
-    _check_unported_options(params)
+    _check_unported_options(params, device)
     dtype = OUTER_DTYPE
     table = table or ConvergenceTable()
     fe_degree = int(get_param(params, "degree", 1))

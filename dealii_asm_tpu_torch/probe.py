@@ -8,8 +8,9 @@
 
 ``profile``: ``run_config`` on the card, with ``torch.profiler`` over the
 first timed solve (after the warm-up solve): device time by kernel name, the
-solve's wall time, and the device's idle share 1 − busy/wall, busy being the
-union of the kernels' intervals.
+solve's wall time, the device's idle share 1 − busy/wall, busy being the
+union of the kernels' intervals, and the number of device operations
+(kernels, copies, fills) the solve issued.
 
 ``sensitivity``: the CG iteration count, the last residuals over the
 stopping threshold and the levels' Lanczos estimates of the largest
@@ -115,9 +116,11 @@ def profile(params: dict, rows: int = 25) -> None:
         poisson.krylov_solve = solve
     prof, wall = state["prof"], state["wall"]
     busy = _busy_us(prof.events()) * 1e-6
+    n_dev = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
     print(f"{res['n_dofs']} DoFs, {res['it']} iterations, profiled solve "
           f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
-          f"{1.0 - busy / wall:.3f}")
+          f"{1.0 - busy / wall:.3f}, {n_dev} device operations")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=rows))
 

@@ -183,3 +183,64 @@ def test_attach_wiring_matches_unfused_smoother(params, monkeypatch):
     assert sm.fused_sweep is not None
     assert _rel(sm.step(xt, bt), ref_step) < 1e-6
     assert _rel(sm.vmult(bt), ref_zero) < 1e-6
+
+
+def _sub_step_sweep(x, b, op, asm, coefs, zero_x):
+    """Kernel D's sub-steps as csrc/smoother_sweep.cu runs them, walked with
+    the plain versions of its launches: kernel A's residual r = b - A x_s
+    (none in the zero guess's first sub-step, which reads b), then kernel
+    B's momentum step.  p starts as garbage (NaN) and is read only where
+    f1 != 0 after the first sub-step, written only where a later row reads
+    it; the iterates ping-pong between two buffers so that the last
+    sub-step writes out."""
+    from dealii_asm_tpu_torch.kernels.banded_laplace import \
+        banded_laplace_plain
+    from dealii_asm_tpu_torch.kernels.fdm_patch import fdm_patch_plain
+
+    k = len(coefs)
+    p = torch.full_like(b, float("nan"))
+    out, tmp = torch.full_like(b, float("nan")), torch.full_like(b, float("nan"))
+    xs = None if zero_x else x
+    for i, (f1, f2) in enumerate(coefs):
+        xn = out if (k - 1 - i) % 2 == 0 else tmp
+        read_p = i > 0 and f1 != 0.0
+        write_p = i + 1 < k and coefs[i + 1][0] != 0.0
+        src = b if xs is None else banded_laplace_plain(xs, op.tables, b)
+        v = fdm_patch_plain(src, asm.tables, f2)
+        pn = f1 * p + v if read_p else v
+        if write_p:
+            p.copy_(pn)
+        xn.copy_(pn if xs is None else xs + pn)
+        xs = xn
+    return out
+
+
+@pytest.mark.parametrize("rows", [
+    [(0.0, 0.9), (0.4, 1.3)],              # Chebyshev-like, degree 2
+    [(0.0, 0.8), (0.3, 1.1), (0.2, 1.2)],  # degree 3
+    [(0.0, 0.5)] * 3,                      # Relaxation: p never read
+    [(0.0, 0.7)]])                         # one sub-step
+@pytest.mark.parametrize("zero_x", [False, True])
+@pytest.mark.parametrize("p", [2, 4])  # the fdm1 ladder's level degrees
+def test_sweep_sub_steps_match_plain_and_tpu_chain(rows, zero_x, p):
+    cells = (3, 4, 3) if p == 2 else (2, 3, 2)
+    jop, jasm, op, asm, x, b = _level(cells, p, 110 + len(rows))
+    xt, bt = torch.as_tensor(x), torch.as_tensor(b)
+    got = _sub_step_sweep(None if zero_x else xt, bt, op, asm, rows, zero_x)
+    assert torch.isfinite(got).all()  # garbage p was never read
+    ref = smoother_sweep_plain(None if zero_x else xt, bt, op.tables,
+                               asm.tables, rows, zero_x)
+    assert _rel(got, ref) < 1e-6
+    mask = op.dofs.boundary_mask
+    if zero_x:
+        assert not got.numpy()[mask].any()
+    else:
+        np.testing.assert_array_equal(got.numpy()[mask], x[mask])
+    ck = SmootherStepKernel(jop, jasm).as_chain(len(rows))
+    shape = op.grid_shape
+    xg, bg = jnp.asarray(x).reshape(shape), jnp.asarray(b).reshape(shape)
+    bp = ck.pad_grid(bg)
+    out = ck.sweep_padded(bp if zero_x else ck.pad_grid(xg), bp, rows,
+                          zero_x=zero_x, interpret=True)
+    tpu = ck.unpad_grid(out, full_src=None if zero_x else xg).reshape(-1)
+    assert _rel(got, tpu) < 4e-2
