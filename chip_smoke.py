@@ -8,10 +8,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
    limit;
 2. build the kernels from dealii_asm_tpu_torch/kernels/csrc with nvcc, and
-   print the launch plan of every instantiation of kernel A and of the
-   tiled kernels B and C (tile, threads, shared bytes), held equal to
-   kernels/banded_laplace.py::launch_plan and
-   kernels/fdm_patch.py::launch_plan;
+   print the launch plan of every instantiation of kernel A, of the tiled
+   kernels B and C (tile, threads, shared bytes) and of the line-per-thread
+   cell body of E and F (cells a warp and a block, threads, shared and
+   parameter bytes), held equal to kernels/banded_laplace.py::launch_plan,
+   kernels/fdm_patch.py::launch_plan and kernels/merged_laplace.py::
+   cell_plan; with --ptxas also registers and spills, and the count of E's
+   and F's multiplies that take a table entry from the parameter bank or
+   from a uniform register loaded from it;
 3. every kernel against its plain PyTorch version on the card, on random
    inputs from a seed, with kernel and plain times from CUDA events taken in
    turns (plain, kernel, kernel, plain):
@@ -26,10 +30,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      ladder's stretch-50 mesh at 16^3 cells Q4 (per-coordinate tables),
      repeated runs bit-identical;
    - E (float64 and float32) on Kershaw meshes (eps 0.3, mapping degree 3)
-     at 2^3, 12^3 and 48^3 cells Q4 and at p = 1 and 2, in its vmult and
-     residual modes, repeated runs bit-identical;
+     at 2^3, 12^3 and 48^3 cells Q4 and at p = 1..7 (12^3 cells), in its
+     vmult and residual modes, repeated runs bit-identical; timed at 48^3
+     cells Q4, Q2 and Q1 (the Kershaw levels; CUDA events over calls and
+     over replays of a CUDA graph of one call, which leaves out the host's
+     launch cost), printed before the kernel table;
    - F (float64 and float32) on the balanced hyperball (mapping degree 2)
-     at 32, 2,048 and 131,072 cells Q4 and at p = 1 and 2 (2,048 cells), in
+     at 32, 2,048 and 131,072 cells Q4 and at p = 1..7 (2,048 cells), in
      its vmult and residual modes, repeated runs bit-identical;
    - D (float32) on Cartesian meshes at 16^3 and 64^3 cells Q4 and Q2 and
      on 5 x 7 x 13 cells Q4, Chebyshev rows of both kinds at
@@ -70,7 +77,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    JAX package has no count at this size); its count, setup and solve
    seconds and peak device memory are printed.
 The launch counts of each solve are set to 0 just before it and read just
-after.  The last two lines of standard output are the kernel table as JSON
+after.  Before the kernel table come E's times at the Kershaw level
+shapes.  The last two lines of standard output are the kernel table as JSON
 and the result line {"ok": true, "device": {...}}.  Without a GPU, or
 without the package beside the script, it exits non-zero and prints no
 result.
@@ -189,6 +197,27 @@ def cuda_time(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time(fn, reps: int):
+    """Device ms of one call of ``fn`` without the host's launch cost: the
+    call captured once in a CUDA graph and replayed (None if the capture
+    fails)."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return cuda_time(graph.replay, reps)
+    except RuntimeError as e:
+        print(f"    graph capture failed: {e}")
+        return None
+
+
 def in_turns(plain, kernel, reps: int):
     """(kernel_ms, plain_ms): order plain, kernel, kernel, plain."""
     p1 = cuda_time(plain, reps)
@@ -276,14 +305,15 @@ def sweep_work(cells: int, n: int, p: int, k: int, zero_x: bool) -> tuple:
 
 
 def check_plans() -> None:
-    """Phase 2: the launch plan of every instantiation of kernels A, B and
-    C as the library has it (dat_band_plan, dat_tile_plan) against
-    launch_plan's mirrors."""
+    """Phase 2: the launch plan of every instantiation of kernels A, B, C,
+    E and F as the library has it (dat_band_plan, dat_tile_plan,
+    dat_cell_plan) against launch_plan's and cell_plan's mirrors."""
     import ctypes
 
     from dealii_asm_tpu_torch.kernels import banded_laplace
     from dealii_asm_tpu_torch.kernels.build import load
     from dealii_asm_tpu_torch.kernels.fdm_patch import KERNEL_IDS, launch_plan
+    from dealii_asm_tpu_torch.kernels.merged_laplace import cell_plan
 
     lib = load()
     got = (ctypes.c_int * 5)()
@@ -313,6 +343,57 @@ def check_plans() -> None:
                 if tuple(got) != want:
                     raise Failed(f"plan {kernel} p={p} itemsize={itemsize}: "
                                  f"library {tuple(got)}, launch_plan {want}")
+    for p in range(1, 8):
+        for itemsize in (4, 8):
+            if lib.dat_cell_plan(p, itemsize, got) != 0:
+                raise Failed(f"dat_cell_plan({p}, {itemsize})")
+            plan = cell_plan(p, itemsize)
+            want = (plan.cells_per_warp, plan.cells, plan.threads,
+                    plan.shared_bytes, plan.param_bytes)
+            print(f"  plan merged/lanes cells p={p} float{8 * itemsize}: "
+                  f"{got[1]} cells a block ({got[0] or 'spanning'} a warp), "
+                  f"{got[2]} threads, {got[3]} shared bytes, {got[4]} "
+                  f"parameter bytes")
+            if tuple(got) != want:
+                raise Failed(f"plan cells p={p} itemsize={itemsize}: "
+                             f"library {tuple(got)}, cell_plan {want}")
+
+
+def sass_table_operands() -> None:
+    """With --ptxas: how many of the floating-point multiplies of E's and
+    F's cell kernels take an operand from the parameter bank (c[0x0][...],
+    where the by-value 1D tables live) or from a uniform register (loaded
+    from that bank by ULDC, once a warp), from cuobjdump -sass of the built
+    library."""
+    import re
+
+    from dealii_asm_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = sh([tool, "-sass", str(build.build())])
+    stats, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(merged|lanes)_cells_kernelI([df])Li(\d)E", line)
+            cur = None
+            if m:
+                dt = "float64" if m[2] == "d" else "float32"
+                cur = f"{m[1]} {dt} p={m[3]}"
+            continue
+        if cur and re.search(r"\b(DFMA|FFMA|DMUL|FMUL)\b", line):
+            s = stats.setdefault(cur, [0, 0, 0, []])
+            s[0] += "c[0x0]" in line
+            s[1] += bool(re.search(r"\bUR\d", line))
+            s[2] += 1
+            if len(s[3]) < 4:
+                s[3].append(" ".join(line.split("*/")[1].split("/*")[0]
+                                     .split()))
+    if not stats:
+        print(f"  sass: no cell kernel found ({text[:200]!r})")
+    for name, (const, uniform, total, lines) in sorted(stats.items()):
+        print(f"  sass {name}: of {total} multiplies {const} take a "
+              f"parameter-bank operand, {uniform} a uniform register; e.g. "
+              + " | ".join(lines))
 
 
 def check_kernels(cells_list, degrees_small, results):
@@ -441,9 +522,12 @@ def check_f64(runs: dict, tag: str) -> None:
                          f"bit-identical={same}")
 
 
-def check_merged(cells_list, degrees_small, results):
+def check_merged(cells_list, degrees_small, level_degrees, results, rows):
     """Phase 3: kernel E (both precisions) vs its plain version on Kershaw
-    meshes."""
+    meshes: each size of ``cells_list`` at Q4, each of ``degrees_small`` on
+    the second size, and each of ``level_degrees`` on the largest (the
+    Kershaw levels' shapes).  Timed in turns at Q4 and on the largest size;
+    the largest size's times also go to ``rows``."""
     import numpy as np
     import torch
 
@@ -457,7 +541,10 @@ def check_merged(cells_list, degrees_small, results):
     rng = np.random.default_rng(SEED + 1)
     dev = "cuda"
     small = cells_list[min(1, len(cells_list) - 1)]
-    cases = [(c, 4) for c in cells_list] + [(small, p) for p in degrees_small]
+    big = max(cells_list)
+    cases = [(c, 4) for c in cells_list]
+    cases += [(small, p) for p in degrees_small if (small, p) not in cases]
+    cases += [(big, p) for p in level_degrees if (big, p) not in cases]
     for c, p in cases:
         mesh = StructuredMesh(3, (c, c, c),
                               transform=kershaw_transform(0.3, 0.3))
@@ -484,14 +571,27 @@ def check_merged(cells_list, degrees_small, results):
                 if not err <= BOUNDS[name] or not same:
                     raise Failed(f"{name} {what} {tag}: {err:.3e}, "
                                  f"bit-identical={same}")
-            abs_err = float((merged_laplace(x, op.tables)
-                             - merged_laplace_plain(x, op.tables)).abs().max())
-            k_ms, p_ms = in_turns(lambda: merged_laplace_plain(x, op.tables),
-                                  lambda: merged_laplace(x, op.tables), reps)
-            print_time(tag, n, k_ms, p_ms)
-            work = merged_work(c ** 3, n, p, x.element_size())
-            results.setdefault(name, {})[tag] = (
-                abs_err, k_ms, p_ms, bound(*work, x.element_size()))
+            if p == 4 or c == big:
+                abs_err = float((merged_laplace(x, op.tables)
+                                 - merged_laplace_plain(x, op.tables))
+                                .abs().max())
+                k_ms, p_ms = in_turns(
+                    lambda: merged_laplace_plain(x, op.tables),
+                    lambda: merged_laplace(x, op.tables), reps)
+                print_time(tag, n, k_ms, p_ms)
+                work = bound(*merged_work(c ** 3, n, p, x.element_size()),
+                             x.element_size())
+                results.setdefault(name, {})[tag] = (abs_err, k_ms, p_ms,
+                                                     work)
+                if c == big:
+                    g_ms = graph_time(lambda: merged_laplace(x, op.tables),
+                                      5 * reps)
+                    g_txt = "not measured" if g_ms is None else f"{g_ms:.4f}"
+                    rows.append(f"E {name} {tag}: kernel {k_ms:.4f} ms "
+                                f"({g_txt} ms replayed in a CUDA graph), "
+                                f"plain {p_ms:.4f} ms, bound {work[0]:.4f} "
+                                f"ms ({work[1]}), {work[0] / k_ms:.1%} of "
+                                "it")
             del op
             torch.cuda.empty_cache()
 
@@ -594,7 +694,8 @@ def check_tiles(degrees, results):
 
 def check_lanes(refinements, degrees_small, results):
     """Phase 3: kernel F (both precisions) vs its plain version on the
-    balanced hyperball."""
+    balanced hyperball at each of ``refinements`` at Q4 and each of
+    ``degrees_small`` on the second; timed in turns at Q4."""
     import numpy as np
     import torch
 
@@ -611,7 +712,8 @@ def check_lanes(refinements, degrees_small, results):
     while len(meshes) <= max(refinements):
         meshes.append(meshes[-1].refine())
     small = refinements[min(1, len(refinements) - 1)]
-    cases = [(r, 4) for r in refinements] + [(small, p) for p in degrees_small]
+    cases = [(r, 4) for r in refinements]
+    cases += [(small, p) for p in degrees_small if (small, p) not in cases]
     for r, p in cases:
         mesh = meshes[r]
         dofs = GeneralDofHandler(mesh, p)
@@ -637,40 +739,43 @@ def check_lanes(refinements, degrees_small, results):
                 if not err <= BOUNDS[name] or not same:
                     raise Failed(f"{name} {what} {tag}: {err:.3e}, "
                                  f"bit-identical={same}")
-            abs_err = float((lanes_laplace(x, op.tables)
-                             - lanes_laplace_plain(x, op.tables)).abs().max())
-            k_ms, p_ms = in_turns(lambda: lanes_laplace_plain(x, op.tables),
-                                  lambda: lanes_laplace(x, op.tables), reps)
-            print_time(tag, n, k_ms, p_ms)
-            work = lanes_work(c, n, p, x.element_size())
-            results.setdefault(name, {})[tag] = (
-                abs_err, k_ms, p_ms, bound(*work, x.element_size()))
+            if p == 4:
+                abs_err = float((lanes_laplace(x, op.tables)
+                                 - lanes_laplace_plain(x, op.tables))
+                                .abs().max())
+                k_ms, p_ms = in_turns(
+                    lambda: lanes_laplace_plain(x, op.tables),
+                    lambda: lanes_laplace(x, op.tables), reps)
+                print_time(tag, n, k_ms, p_ms)
+                work = lanes_work(c, n, p, x.element_size())
+                results.setdefault(name, {})[tag] = (
+                    abs_err, k_ms, p_ms, bound(*work, x.element_size()))
             del op
             torch.cuda.empty_cache()
 
 
 def device_kernels(fn, tries: int = 3) -> list:
     """The names of the device kernels one call of ``fn`` launches, in
-    order (torch.profiler).  A trace with no kernel at all is the
-    profiler's loss (fn launches at least one, and the profiler has
-    returned such a trace on the H100 after good ones), so it is taken
-    again, at most ``tries`` times."""
+    order (torch.profiler).  A trace can lose kernels but never adds one
+    (on the H100 the profiler has returned, after good traces, one with no
+    kernel and one without the call's first kernel), so ``fn`` is traced
+    ``tries`` times and the trace with the most kernels is taken; the
+    counts of all are printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = []
+    traces = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "memset" not in e.name.lower()
-                 and "memcpy" not in e.name.lower()]
-        if names:
-            break
-    return names
+        traces.append([e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "memset" not in e.name.lower()
+                       and "memcpy" not in e.name.lower()])
+    print(f"    kernels in {tries} traces: {[len(t) for t in traces]}")
+    return max(traces, key=len)
 
 
 def check_sweep(cells_list, results):
@@ -998,7 +1103,7 @@ def main(argv=None) -> int:
               "--format=csv,noheader"])
     print(f"gpu: {smi}")
 
-    results, counts = {}, {}
+    results, counts, level_rows = {}, {}, []
     try:
         print("== build")
         t0 = time.perf_counter()
@@ -1006,11 +1111,14 @@ def main(argv=None) -> int:
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"(nvcc {build.last_build_seconds or 0.0:.1f} s)")
         check_plans()
+        if args.ptxas:
+            sass_table_operands()
         print("== kernels vs plain PyTorch on the card")
         check_kernels([2] if args.quick else [2, 16, 64], [2, 4], results)
-        check_merged([2] if args.quick else [2, 12, 48], [1, 2], results)
+        check_merged([2] if args.quick else [2, 12, 48], range(1, 8),
+                     () if args.quick else (2, 1), results, level_rows)
         check_tiles(range(1, 8), results)
-        check_lanes([0] if args.quick else [0, 2, 4], [1, 2], results)
+        check_lanes([0] if args.quick else [0, 2, 4], range(1, 8), results)
         check_sweep([2] if args.quick else [16, 64], results)
         if not args.quick:
             print("== flagship solve on the card")
@@ -1043,6 +1151,8 @@ def main(argv=None) -> int:
                       "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                       "shape": tag})
+    for row in level_rows:
+        print(row)
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@ _STEP = [_P, _P, _P] + [_P] * 6 + [_P] * 12 + [_I] * 4
 # x, b, r, p, out, tmp; the 6 + 12 tables; Cz, Cy, Cx, p; the host array of
 # coefficient rows, k, zero_x, the stream
 _SWEEP = [_P] * 6 + [_P] * 6 + [_P] * 12 + [_I] * 4 + [_P, _I, _I, _P]
+# E and F: u, rhs, out, scratch, coeff, the host (4, m, m) shape table, then
+# (F) gather, row_ptr, slots; the sizes, p, mode, the stream
 _MERGED = [_P] * 6 + [_I] * 5 + [_P]
 _LANES = [_P] * 9 + [_I] * 4 + [_P]
 SIGNATURES = {
@@ -54,6 +56,7 @@ SIGNATURES = {
     "dat_smoother_sweep_f32": _SWEEP,
     "dat_smoother_sweep_f64": _SWEEP,
     "dat_band_plan": [_I, _I, _P],
+    "dat_cell_plan": [_I, _I, _P],
     "dat_tile_plan": [_I, _I, _I, _P],
 }
 

@@ -27,10 +27,12 @@
 // Design: deterministic, two launches, no atomics (float atomics sum in an
 // order that changes from run to run; run_config requires a repeated solve to
 // take the same iteration count).
-// 1. lanes_cells_kernel: a block owns CPB cells.  It gathers their m^3 values
+// 1. lanes_cells_kernel: one thread per 1D line of a cell (cell_sumfac,
+//    sumfac_cell.cuh, shared with kernel E; the 1D tables a by-value kernel
+//    parameter).  A thread gathers its share of the cell's m^3 values
 //    through the gather table, whose constrained entries are -1 (read as 0),
-//    and runs cell_sumfac (sumfac_cell.cuh, shared with kernel E) into a
-//    (C, m^3) scratch.
+//    neighbouring lanes reading neighbouring entries; the cell's result goes
+//    to a (C, m^3) scratch.
 // 2. lanes_scatter_kernel: one thread per DoF sums its scratch slots in
 //    ascending order from a CSR inverse of cell_dofs built once at setup
 //    (row_ptr of n+1 entries, then the slot ids) and applies the epilogue.
@@ -39,38 +41,37 @@
 // The scratch and the CSR add about 0.36 GB of traffic in float64 (the
 // scratch written and read, 2 x 131 MB, the slot ids 65.5 MB and row_ptr
 // 33.8 MB): the price of a fixed summation order.
+#include <cstring>
+
 #include "sumfac_cell.cuh"
 
 namespace dat {
 namespace {
 
-constexpr int kThreads = kCellThreads;
+constexpr int kThreads = 256;  // the scatter kernel's block
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(CellConfig<T, P>::NT)
 lanes_cells_kernel(const T* __restrict__ u, const int* __restrict__ gather,
-                   const T* __restrict__ coeff, const T* __restrict__ shape,
-                   T* __restrict__ vcell, int C) {
-  using L = CellLayout<P>;
-  constexpr int M = L::M, M2 = L::M2, M3 = L::M3, CPB = L::CPB;
-  __shared__ T sh[4][M][M];        // N, D, D, D as [q][node]
-  __shared__ T buf[6][CPB * M3];   // stage buffers, cell k at k * M3
+                   const T* __restrict__ coeff, T* __restrict__ vcell, int C,
+                   const __grid_constant__ ShapeTables<T, P + 1> tab) {
+  using L = CellConfig<T, P>;
+  constexpr int M3 = L::M3;
+  __shared__ T buf[L::CELLS][3 * M3];  // stage buffers b0, b1, b2 a cell
 
-  const int c0 = blockIdx.x * CPB;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 4 * M2; i += kThreads) (&sh[0][0][0])[i] = shape[i];
-  const size_t first = static_cast<size_t>(c0) * M3;
-  const size_t total = static_cast<size_t>(C) * M3;
-  for (int i = tid; i < CPB * M3; i += kThreads) {
-    T val = T(0);
-    if (first + i < total) {
-      const int g = gather[first + i];
-      if (g >= 0) val = u[g];
-    }
-    buf[0][i] = val;
-  }
-  __syncthreads();
-  cell_sumfac<T, P>(sh, buf, coeff, vcell, c0, C);
+  int k, li;
+  bool active;
+  cell_lane<T, P>(k, li, active);
+  const int c = blockIdx.x * L::CELLS + k;
+  const bool live = active && c < C;
+  const int* g = gather + static_cast<size_t>(c) * M3;
+  auto load = [&](int l) -> T {
+    const int d = g[l];
+    return d >= 0 ? u[d] : T(0);
+  };
+  cell_sumfac<T, P>(tab, buf[active ? k : 0], li, active, live, load,
+                    coeff + static_cast<size_t>(c) * 6 * M3,
+                    vcell + static_cast<size_t>(c) * M3);
 }
 
 template <typename T>
@@ -96,12 +97,15 @@ lanes_scatter_kernel(const T* __restrict__ vcell,
 
 template <typename T, int P>
 void launch_p(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
-              const T* shape, const int* gather, const int* row_ptr,
+              const T* shape_host, const int* gather, const int* row_ptr,
               const int* slots, int C, int n, int mode, cudaStream_t stream) {
-  using L = CellLayout<P>;
-  const unsigned cell_blocks = static_cast<unsigned>((C + L::CPB - 1) / L::CPB);
-  lanes_cells_kernel<T, P><<<cell_blocks, kThreads, 0, stream>>>(
-      u, gather, coeff, shape, scratch, C);
+  using L = CellConfig<T, P>;
+  ShapeTables<T, P + 1> tab;
+  std::memcpy(&tab, shape_host, sizeof(tab));  // host (4, m, m)
+  const unsigned cell_blocks =
+      static_cast<unsigned>((C + L::CELLS - 1) / L::CELLS);
+  lanes_cells_kernel<T, P><<<cell_blocks, L::NT, 0, stream>>>(
+      u, gather, coeff, scratch, C, tab);
   const unsigned dof_blocks = static_cast<unsigned>((n + kThreads - 1) /
                                                     kThreads);
   lanes_scatter_kernel<T><<<dof_blocks, kThreads, 0, stream>>>(
@@ -110,18 +114,18 @@ void launch_p(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
 
 template <typename T>
 int lanes_entry(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
-                const T* shape, const int* gather, const int* row_ptr,
+                const T* shape_host, const int* gather, const int* row_ptr,
                 const int* slots, int C, int n, int p, int mode,
                 void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (p) {
-    case 1: launch_p<T, 1>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 2: launch_p<T, 2>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 3: launch_p<T, 3>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 4: launch_p<T, 4>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 5: launch_p<T, 5>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 6: launch_p<T, 6>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
-    case 7: launch_p<T, 7>(u, rhs, out, scratch, coeff, shape, gather, row_ptr, slots, C, n, mode, s); break;
+    case 1: launch_p<T, 1>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 2: launch_p<T, 2>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 3: launch_p<T, 3>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 4: launch_p<T, 4>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 5: launch_p<T, 5>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 6: launch_p<T, 6>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
+    case 7: launch_p<T, 7>(u, rhs, out, scratch, coeff, shape_host, gather, row_ptr, slots, C, n, mode, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -132,20 +136,24 @@ int lanes_entry(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
 
 extern "C" int dat_lanes_laplace_f32(const float* u, const float* rhs,
                                      float* out, float* scratch,
-                                     const float* coeff, const float* shape,
+                                     const float* coeff,
+                                     const float* shape_host,
                                      const int* gather, const int* row_ptr,
                                      const int* slots, int C, int n, int p,
                                      int mode, void* stream) {
-  return dat::lanes_entry<float>(u, rhs, out, scratch, coeff, shape, gather,
-                                 row_ptr, slots, C, n, p, mode, stream);
+  return dat::lanes_entry<float>(u, rhs, out, scratch, coeff, shape_host,
+                                 gather, row_ptr, slots, C, n, p, mode,
+                                 stream);
 }
 
 extern "C" int dat_lanes_laplace_f64(const double* u, const double* rhs,
                                      double* out, double* scratch,
-                                     const double* coeff, const double* shape,
+                                     const double* coeff,
+                                     const double* shape_host,
                                      const int* gather, const int* row_ptr,
                                      const int* slots, int C, int n, int p,
                                      int mode, void* stream) {
-  return dat::lanes_entry<double>(u, rhs, out, scratch, coeff, shape, gather,
-                                  row_ptr, slots, C, n, p, mode, stream);
+  return dat::lanes_entry<double>(u, rhs, out, scratch, coeff, shape_host,
+                                  gather, row_ptr, slots, C, n, p, mode,
+                                  stream);
 }

@@ -24,56 +24,56 @@
 // Design: deterministic, two launches, no atomics (floating-point atomics
 // would sum in an order that changes from run to run; run_config requires a
 // repeated solve to take the same iteration count).
-// 1. merged_cells_kernel: a block owns CPB cells.  It gathers their (p+1)^3
-//    node values (free mask applied), runs the three forward contractions in
-//    shared memory, applies the cell's coefficients streamed cell-major
-//    (C, 6, Q) so that neighbouring threads read neighbouring words, runs the
-//    three backward contractions and writes the cell's result to a (C, m^3)
-//    scratch array.
+// 1. merged_cells_kernel: one thread per 1D line of a cell (cell_sumfac,
+//    sumfac_cell.cuh, shared with kernel F): cell_shape(p) cells a block,
+//    whole cells a warp up to p = 4.  A thread gathers its share of the
+//    cell's (p+1)^3 node values (free mask applied), the body runs the
+//    three forward contractions in registers with one shared-memory round
+//    trip per change of direction, applies the cell's coefficients in the
+//    registers of the z-lines and runs the three backward contractions; the
+//    1D tables are a by-value kernel parameter.  The cell's result goes to
+//    a (C, m^3) scratch array.
 // 2. merged_gather_kernel: one thread per node sums the contributions of its
 //    up to 8 cells in a fixed order and applies the epilogue.
 // The scratch costs 2 C m^3 words of traffic (about 221 MB at 48^3 Q4 f64),
 // instead of the 8x coefficient re-reads an owner-computes design (kernel B's)
-// would need here.  The per-cell body (cell_sumfac, sumfac_cell.cuh) is shared
-// with kernel F, which gathers through an index table instead of the lattice.
+// would need here.
+#include <cstring>
+
 #include "sumfac_cell.cuh"
 
 namespace dat {
 namespace {
 
-constexpr int kThreads = kCellThreads;
+constexpr int kNodeThreads = 256;
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(CellConfig<T, P>::NT)
 merged_cells_kernel(const T* __restrict__ u, const T* __restrict__ coeff,
-                    const T* __restrict__ shape, T* __restrict__ vcell,
-                    int Cz, int Cy, int Cx) {
-  using L = CellLayout<P>;
-  constexpr int M = L::M, M2 = L::M2, M3 = L::M3, CPB = L::CPB;
-  __shared__ T sh[4][M][M];        // N, Dx/hx, Dy/hy, Dz/hz as [q][node]
-  __shared__ T buf[6][CPB * M3];   // stage buffers, cell k at k * M3
+                    T* __restrict__ vcell, int Cz, int Cy, int Cx,
+                    const __grid_constant__ ShapeTables<T, P + 1> tab) {
+  using L = CellConfig<T, P>;
+  constexpr int M = L::M, M2 = L::M2, M3 = L::M3;
+  __shared__ T buf[L::CELLS][3 * M3];  // stage buffers b0, b1, b2 a cell
 
   const int C = Cz * Cy * Cx;
   const int Nx = Cx * P + 1, Ny = Cy * P + 1, Nz = Cz * P + 1;
-  const int c0 = blockIdx.x * CPB;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < 4 * M2; i += kThreads) (&sh[0][0][0])[i] = shape[i];
-  for (int i = tid; i < CPB * M3; i += kThreads) {
-    const int k = i / M3, l = i - k * M3;
-    const int c = c0 + k;
-    T val = T(0);
-    if (c < C) {
-      const int cx = c % Cx, cy = (c / Cx) % Cy, cz = c / (Cx * Cy);
-      const int x = cx * P + l % M, y = cy * P + (l / M) % M,
-                z = cz * P + l / M2;
-      if (x > 0 && x < Nx - 1 && y > 0 && y < Ny - 1 && z > 0 && z < Nz - 1)
-        val = u[(static_cast<size_t>(z) * Ny + y) * Nx + x];
-    }
-    buf[0][i] = val;
-  }
-  __syncthreads();
-  cell_sumfac<T, P>(sh, buf, coeff, vcell, c0, C);
+  int k, li;
+  bool active;
+  cell_lane<T, P>(k, li, active);
+  const int c = blockIdx.x * L::CELLS + k;
+  const bool live = active && c < C;
+  const int cx = c % Cx, cy = (c / Cx) % Cy, cz = c / (Cx * Cy);
+  auto load = [&](int l) -> T {
+    const int x = cx * P + l % M, y = cy * P + (l / M) % M,
+              z = cz * P + l / M2;
+    const bool free = x > 0 && x < Nx - 1 && y > 0 && y < Ny - 1 && z > 0 &&
+                      z < Nz - 1;
+    return free ? u[(static_cast<size_t>(z) * Ny + y) * Nx + x] : T(0);
+  };
+  cell_sumfac<T, P>(tab, buf[active ? k : 0], li, active, live, load,
+                    coeff + static_cast<size_t>(c) * 6 * M3,
+                    vcell + static_cast<size_t>(c) * M3);
 }
 
 // The cells (and local positions) that hold lattice coordinate i of an axis
@@ -96,14 +96,14 @@ __device__ __forceinline__ int axis_cells(int i, int C, int* cs, int* ls) {
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kNodeThreads)
 merged_gather_kernel(const T* __restrict__ vcell, const T* __restrict__ u,
                      const T* __restrict__ rhs, T* __restrict__ out, int Cz,
                      int Cy, int Cx, int mode) {
-  using L = CellLayout<P>;
-  constexpr int M = L::M, M3 = L::M3;
+  constexpr int M = P + 1, M3 = M * M * M;
   const int Nx = Cx * P + 1, Ny = Cy * P + 1, Nz = Cz * P + 1;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const size_t idx =
+      static_cast<size_t>(blockIdx.x) * kNodeThreads + threadIdx.x;
   if (idx >= static_cast<size_t>(Nz) * Ny * Nx) return;
   const int x = static_cast<int>(idx % Nx);
   const int y = static_cast<int>((idx / Nx) % Ny);
@@ -133,35 +133,37 @@ merged_gather_kernel(const T* __restrict__ vcell, const T* __restrict__ u,
 
 template <typename T, int P>
 void launch_p(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
-              const T* shape, int Cz, int Cy, int Cx, int mode,
+              const T* shape_host, int Cz, int Cy, int Cx, int mode,
               cudaStream_t stream) {
-  using L = CellLayout<P>;
+  using L = CellConfig<T, P>;
+  ShapeTables<T, P + 1> tab;
+  std::memcpy(&tab, shape_host, sizeof(tab));  // host (4, m, m)
   const size_t C = static_cast<size_t>(Cz) * Cy * Cx;
   const size_t n = static_cast<size_t>(Cz * P + 1) * (Cy * P + 1) *
                    (Cx * P + 1);
   const unsigned cell_blocks =
-      static_cast<unsigned>((C + L::CPB - 1) / L::CPB);
-  merged_cells_kernel<T, P><<<cell_blocks, kThreads, 0, stream>>>(
-      u, coeff, shape, scratch, Cz, Cy, Cx);
-  const unsigned node_blocks = static_cast<unsigned>((n + kThreads - 1) /
-                                                     kThreads);
-  merged_gather_kernel<T, P><<<node_blocks, kThreads, 0, stream>>>(
+      static_cast<unsigned>((C + L::CELLS - 1) / L::CELLS);
+  merged_cells_kernel<T, P><<<cell_blocks, L::NT, 0, stream>>>(
+      u, coeff, scratch, Cz, Cy, Cx, tab);
+  const unsigned node_blocks =
+      static_cast<unsigned>((n + kNodeThreads - 1) / kNodeThreads);
+  merged_gather_kernel<T, P><<<node_blocks, kNodeThreads, 0, stream>>>(
       scratch, u, rhs, out, Cz, Cy, Cx, mode);
 }
 
 template <typename T>
 int merged_entry(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
-                 const T* shape, int Cz, int Cy, int Cx, int p, int mode,
+                 const T* shape_host, int Cz, int Cy, int Cx, int p, int mode,
                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (p) {
-    case 1: launch_p<T, 1>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 2: launch_p<T, 2>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 3: launch_p<T, 3>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 4: launch_p<T, 4>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 5: launch_p<T, 5>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 6: launch_p<T, 6>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
-    case 7: launch_p<T, 7>(u, rhs, out, scratch, coeff, shape, Cz, Cy, Cx, mode, stream); break;
+    case 1: launch_p<T, 1>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 2: launch_p<T, 2>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 3: launch_p<T, 3>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 4: launch_p<T, 4>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 5: launch_p<T, 5>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 6: launch_p<T, 6>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
+    case 7: launch_p<T, 7>(u, rhs, out, scratch, coeff, shape_host, Cz, Cy, Cx, mode, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -172,18 +174,36 @@ int merged_entry(const T* u, const T* rhs, T* out, T* scratch, const T* coeff,
 
 extern "C" int dat_merged_laplace_f32(const float* u, const float* rhs,
                                       float* out, float* scratch,
-                                      const float* coeff, const float* shape,
-                                      int Cz, int Cy, int Cx, int p, int mode,
-                                      void* stream) {
-  return dat::merged_entry<float>(u, rhs, out, scratch, coeff, shape, Cz, Cy,
-                                  Cx, p, mode, stream);
+                                      const float* coeff,
+                                      const float* shape_host, int Cz, int Cy,
+                                      int Cx, int p, int mode, void* stream) {
+  return dat::merged_entry<float>(u, rhs, out, scratch, coeff, shape_host, Cz,
+                                  Cy, Cx, p, mode, stream);
 }
 
 extern "C" int dat_merged_laplace_f64(const double* u, const double* rhs,
                                       double* out, double* scratch,
                                       const double* coeff,
-                                      const double* shape, int Cz, int Cy,
-                                      int Cx, int p, int mode, void* stream) {
-  return dat::merged_entry<double>(u, rhs, out, scratch, coeff, shape, Cz, Cy,
-                                   Cx, p, mode, stream);
+                                      const double* shape_host, int Cz,
+                                      int Cy, int Cx, int p, int mode,
+                                      void* stream) {
+  return dat::merged_entry<double>(u, rhs, out, scratch, coeff, shape_host,
+                                   Cz, Cy, Cx, p, mode, stream);
+}
+
+// Kernels E's and F's cell launch at degree p for elements of itemsize
+// bytes: out[0..4] = cells a warp (0: a cell spans warps), cells a block,
+// threads, static shared bytes, bytes of the by-value table parameter.
+// kernels/merged_laplace.py::cell_plan mirrors it.
+extern "C" int dat_cell_plan(int p, int itemsize, int* out) {
+  if (p < 1 || p > 7 || (itemsize != 4 && itemsize != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dat::CellShape s = dat::cell_shape(p, itemsize);
+  const int m = p + 1;
+  out[0] = s.cpw;
+  out[1] = s.cells;
+  out[2] = s.threads;
+  out[3] = s.cells * 3 * m * m * m * itemsize;
+  out[4] = 4 * m * m * itemsize;
+  return 0;
 }

@@ -16,6 +16,10 @@ with P_c the gather of cell c's DoFs through ``cell_dofs``.  It launches the
 CUDA kernel for a CUDA tensor and runs ``lanes_laplace_plain`` (the JAX
 package's ``apply_cells`` sum-factorised form with an ``index_add_``
 scatter) for a CPU tensor.
+
+The kernel shares kernel E's cell body (``csrc/sumfac_cell.cuh``: one thread
+per 1D line of a cell, launch plan ``merged_laplace.cell_plan``); its 1D
+tables travel by value in the launch, copied from ``shape_host``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..ops.fixed_sum import csr_inverse
 from . import LAUNCHES
 from .banded_laplace import _MODE, _check_vec
 from .build import check, load
+from .merged_laplace import check_shape_host
 
 
 @dataclass
@@ -38,19 +43,25 @@ class LanesTables:
     ``coeff``: cell-major (C, 6, Q) symmetric coefficients [xx, yy, zz, xy,
     xz, yz] in reference coordinates, quadrature points x fastest, in the
     operator's dtype; ``shape``: (4, m, m) = N, D, D, D as [quadrature
-    point, node]; ``cell_dofs``: (C, m³) int32; ``gather``: the same with -1
-    at constrained DoFs; ``row_ptr`` (n+1,) and ``slots`` int32: the CSR
-    inverse of ``cell_dofs`` over the free DoFs (an empty row is a
-    constrained DoF); ``free``: (n,) bool."""
+    point, node]; ``shape_host``: the same values on the host, which the
+    kernel launch copies into its parameters; ``cell_dofs``: (C, m³)
+    int32; ``gather``: the same with -1 at constrained DoFs; ``row_ptr``
+    (n+1,) and ``slots`` int32: the CSR inverse of ``cell_dofs`` over the
+    free DoFs (an empty row is a constrained DoF); ``free``: (n,) bool."""
 
     coeff: torch.Tensor
     shape: torch.Tensor
+    shape_host: torch.Tensor
     cell_dofs: torch.Tensor
     gather: torch.Tensor
     row_ptr: torch.Tensor
     slots: torch.Tensor
     free: torch.Tensor
     p: int
+
+    def __post_init__(self):
+        check_shape_host(self.shape_host, self.p, self.coeff.dtype,
+                         "LanesTables")
 
     @property
     def n(self) -> int:
@@ -59,15 +70,15 @@ class LanesTables:
 
 def lanes_tables(cell_dofs: np.ndarray, boundary_mask: np.ndarray,
                  coeff: torch.Tensor, shape: torch.Tensor,
-                 p: int) -> LanesTables:
+                 shape_host: torch.Tensor, p: int) -> LanesTables:
     """Index tables on ``coeff``'s device for ``cell_dofs`` (C, m³)."""
     dev = coeff.device
     cd = torch.as_tensor(np.ascontiguousarray(cell_dofs, np.int32), device=dev)
     free = torch.as_tensor(~np.asarray(boundary_mask, bool), device=dev)
     gather = torch.where(free[cd.long()], cd, -1)
     row_ptr, slots = csr_inverse(gather, free.numel())
-    return LanesTables(coeff, shape, cd, gather, row_ptr.int(), slots.int(),
-                       free, p)
+    return LanesTables(coeff, shape, shape_host, cd, gather, row_ptr.int(),
+                       slots.int(), free, p)
 
 
 def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
@@ -124,13 +135,12 @@ def lanes_laplace(u: torch.Tensor, t: LanesTables,
     if m3 != m ** 3 or not 1 <= t.p <= 7:
         raise ValueError(f"lanes_laplace: degree {t.p} with {m3} DoFs per "
                          "cell; the kernel takes 1 <= p <= 7")
-    for name, tab, want in (("coeff", t.coeff, (C, 6, m3)),
-                            ("shape", t.shape, (4, m, m))):
-        if (tab.shape != want or tab.dtype != u.dtype
-                or tab.device != u.device or not tab.is_contiguous()):
-            raise ValueError(f"lanes_laplace: {name} table {tuple(tab.shape)} "
-                             f"{tab.dtype} on {tab.device}, expected a "
-                             f"contiguous {want} {u.dtype} on {u.device}")
+    tab, want = t.coeff, (C, 6, m3)
+    if (tab.shape != want or tab.dtype != u.dtype
+            or tab.device != u.device or not tab.is_contiguous()):
+        raise ValueError(f"lanes_laplace: coeff table {tuple(tab.shape)} "
+                         f"{tab.dtype} on {tab.device}, expected a "
+                         f"contiguous {want} {u.dtype} on {u.device}")
     for name in ("gather", "row_ptr", "slots"):
         tab = getattr(t, name)
         if (tab.dtype != torch.int32 or tab.device != u.device
@@ -147,8 +157,9 @@ def lanes_laplace(u: torch.Tensor, t: LanesTables,
     scratch = torch.empty((C, m3), dtype=u.dtype, device=u.device)
     err = fn(u.data_ptr(), rhs.data_ptr() if rhs is not None else None,
              out.data_ptr(), scratch.data_ptr(), t.coeff.data_ptr(),
-             t.shape.data_ptr(), t.gather.data_ptr(), t.row_ptr.data_ptr(),
-             t.slots.data_ptr(), C, t.n, t.p, _MODE[rhs is not None],
+             t.shape_host.data_ptr(), t.gather.data_ptr(),
+             t.row_ptr.data_ptr(), t.slots.data_ptr(), C, t.n, t.p,
+             _MODE[rhs is not None],
              torch.cuda.current_stream(u.device).cuda_stream)
     check(err, key)
     LAUNCHES[key] += 1

@@ -112,7 +112,9 @@ class LaplaceOperator(nn.Module):
         del coeff
         s = shape_1d(p, p + 1)
         Ds = [s.D / mesh.h[d] for d in range(self.dim)]
-        self.register_buffer("shape_tabs", self._tensor(np.stack([s.N, *Ds])))
+        # the kernel's launch takes the 1D tables from this host copy
+        shape_host = torch.tensor(np.stack([s.N, *Ds]), dtype=self.dtype)
+        self.register_buffer("shape_tabs", shape_host.to(self.device))
         for d in range(self.dim):
             n, c = self.dofs.nodes_per_dim[d], mesh.n_cells[d]
             self.register_buffer(f"Ev{d}", self._tensor(
@@ -120,7 +122,7 @@ class LaplaceOperator(nn.Module):
             self.register_buffer(f"Ed{d}", self._tensor(
                 interp_direction_transform(Ds[d], n, p, c, False)))
         self.tables = MergedTables(
-            self.coeff6, self.shape_tabs,
+            self.coeff6, self.shape_tabs, shape_host,
             [getattr(self, f"Ev{d}") for d in range(self.dim)],
             [getattr(self, f"Ed{d}") for d in range(self.dim)],
             p, tuple(reversed(mesh.n_cells)), self.free)

@@ -67,10 +67,11 @@ class GeneralLaplaceOperator(nn.Module):
         self.register_buffer("coeff6", coeff6.to(dtype).contiguous())
         del coeff6
         s = shape_1d(p, p + 1)
-        self.register_buffer("shape_tabs", torch.tensor(
-            np.stack([s.N, s.D, s.D, s.D]), dtype=dtype, device=self.device))
+        # the kernel's launch takes the 1D tables from this host copy
+        shape_host = torch.tensor(np.stack([s.N, s.D, s.D, s.D]), dtype=dtype)
+        self.register_buffer("shape_tabs", shape_host.to(self.device))
         self.tables = lanes_tables(dofs.cell_dofs, dofs.boundary_mask,
-                                   self.coeff6, self.shape_tabs, p)
+                                   self.coeff6, self.shape_tabs, shape_host, p)
 
     def vmult(self, u: torch.Tensor) -> torch.Tensor:
         """A·u in the operator's dtype; another input dtype is cast in and

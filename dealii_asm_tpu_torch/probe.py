@@ -10,7 +10,8 @@
 first timed solve (after the warm-up solve): device time by kernel name, the
 solve's wall time, the device's idle share 1 − busy/wall, busy being the
 union of the kernels' intervals, and the number of device operations
-(kernels, copies, fills) the solve issued.
+(kernels, copies, fills) the solve issued; then each of the port's own
+kernels (one line per instantiation) with its launches and device ms.
 
 ``sensitivity``: the CG iteration count, the last residuals over the
 stopping threshold and the levels' Lanczos estimates of the largest
@@ -45,6 +46,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +125,12 @@ def profile(params: dict, rows: int = 25) -> None:
           f"{1.0 - busy / wall:.3f}, {n_dev} device operations")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=rows))
+    # the port's own kernels in full (the table cuts their names and rows)
+    for ev in prof.key_averages():
+        m = re.search(r"dat::\(anonymous namespace\)::(\w+(<[^>]*>)?)", ev.key)
+        if m:
+            print(f"kernel {m[1]}: {ev.count} launches, "
+                  f"{ev.self_device_time_total / 1e3:.3f} ms")
 
 
 def _laplace_kernel(params: dict):

@@ -1,12 +1,33 @@
 #!/usr/bin/env python3
 """Time kernel variants at 64^3 cells Q4 on one GPU: tile shapes of kernels
 A, B and C, with kernel D's sweep (A's residual and B's momentum step per
-sub-step) at Q4 and Q2 beside them.
+sub-step) at Q4 and Q2 beside them; or, with ``ef`` first, variants of the
+cell body of kernels E and F.
 
     python3 tools/tile_sweep.py                # the A variants
     python3 tools/tile_sweep.py plan c4x4      # some variants by name
     python3 tools/tile_sweep.py all            # every variant below
     python3 tools/tile_sweep.py plan --parent DIR   # beside another checkout
+    python3 tools/tile_sweep.py ef             # E and F: plan, skeleton, ...
+    python3 tools/tile_sweep.py ef plan --parent DIR
+
+In ``ef`` mode each variant times kernel E in float64 and float32 on the
+Kershaw mesh (eps 0.3, mapping degree 3) at 48^3 cells Q4, Q2 and Q1 (the
+Kershaw levels) and kernel F in both precisions on the balanced hyperball
+at 131,072 cells Q4, and prints each output's max relative difference from
+its plain version (the variants sum in other orders, so outputs are not
+compared bit for bit).  ``skeleton`` is the memory skeleton: the same
+launches with every 1D contraction replaced by the identity, so the
+coefficients and u are still read, pass through the shared-memory round
+trips and are summed into the output, but no table multiply is left; its
+time is the floor the body is held to.  ``warpPxN`` runs degree P with
+one cell a warp and N cells (warps) a block, ``packedPxN`` packs the lines
+of N cells into a block (block barriers), both precisions alike unless
+the variant says otherwise; ``bounds6`` holds float64 p = 4 to 6 blocks
+an SM; ``prefetch`` loads the coefficients before the cell's values and
+``gathers`` unrolls the node gather and the DoF scatter.  The ball's DoF
+tables are built once (about 40 s of host NumPy) and handed to
+every variant's process.
 
 Each variant is a copy of dealii_asm_tpu_torch/ (under _tile_sweep/) with
 its kernel sources edited (VARIANTS: file, text, replacement); "plan" is
@@ -76,6 +97,79 @@ VARIANTS = {
 }
 DEFAULT = ("plan", "a32x16", "a32x32", "a64x16", "a32x8", "a32x16t512",
            "a32x16z32", "a32x16m1")
+
+CELL = "sumfac_cell.cuh"
+PLAN_E4 = ("      return itemsize == 8 ? CellShape{1, 4, 128} : "
+           "CellShape{0, 5, 125};")
+PLAN_E1 = "    case 1: return {8, 64, 256};"
+
+
+def _e4(f64, f32=None):  # E's and F's p = 4 shapes (cpw, cells, threads)
+    return [(CELL, PLAN_E4, "      return itemsize == 8 ? CellShape{%d, %d, "
+             "%d} : CellShape{%d, %d, %d};" % (*f64, *(f32 or f64)))]
+
+
+def _e1(shape):  # E's and F's p = 1 shape
+    return [(CELL, PLAN_E1, "    case 1: return {%d, %d, %d};" % shape)]
+
+
+# float64 p = 4 held to 6 blocks an SM (85 registers a thread)
+BOUNDS6 = [(f, "__launch_bounds__(CellConfig<T, P>::NT)",
+            "__launch_bounds__(CellConfig<T, P>::NT, "
+            "sizeof(T) == 8 && P == 4 ? 6 : 1)")
+           for f in ("merged_laplace.cu", "lanes_laplace.cu")]
+
+
+# the 1D contractions of sumfac_cell.cuh, each replaced by the identity
+SKELETON = [
+    (CELL, "acc += A[q][s] * in[q] + B[q][s] * in2[q];",
+     "acc += q == s ? in[q] + in2[q] : T(0);"),
+    (CELL, "acc += A[q][s] * in[s];", "acc += q == s ? in[s] : T(0);"),
+    (CELL, "acc += A[q][s] * in[q];", "acc += q == s ? in[q] : T(0);"),
+]
+# the coefficients loaded before the cell's values, not in the z stage
+PREFETCH = [
+    (CELL, "    coeff_load(cf, cc, li, live);\n", ""),
+    (CELL, "  T cf[6][M];  // loaded in the z stage\n",
+     "  T cf[6][M];\n  if (active) coeff_load(cf, cc, li, live);\n"),
+]
+# kernel E's node gather and F's DoF scatter with their (at most 8, or
+# the first 8) loads unrolled and predicated, in the same summation order
+GATHERS = [
+    ("merged_laplace.cu", """    for (int a = 0; a < nz; ++a)
+      for (int b = 0; b < ny; ++b)
+        for (int e = 0; e < nx; ++e) {
+          const size_t cell =""", """#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (a < nz && b < ny && e < nx) {
+          const size_t cell ="""),
+    ("lanes_laplace.cu", "    for (int k = b; k < e; ++k) v += vcell[slots[k]];",
+     """#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < e - b) v += vcell[slots[b + k]];
+    for (int k = b + 8; k < e; ++k) v += vcell[slots[k]];"""),
+]
+EF_VARIANTS = {
+    "plan": [],
+    "skeleton": SKELETON,
+    "warp4x8": _e4((1, 8, 256)),       # one cell a warp, 8 a block
+    "warp4x4": _e4((1, 4, 128)),
+    "warp4x2": _e4((1, 2, 64)),
+    "warp4x16": _e4((1, 16, 512)),
+    "packed4x10": _e4((0, 10, 250)),   # lines packed across 10 cells
+    "packed4x5": _e4((0, 5, 125)),
+    "packed4x3": _e4((1, 4, 128), (0, 3, 75)),
+    "bounds6": BOUNDS6,
+    "q1x32": _e1((8, 32, 128)),
+    "q1x16": _e1((8, 16, 64)),
+    "prefetch": PREFETCH,
+    "gathers": GATHERS,
+}
+EF_DEFAULT = ("plan", "skeleton", "warp4x8", "packed4x10")
 
 CHILD = r'''
 import json, sys
@@ -157,7 +251,146 @@ print("RESULT " + json.dumps(out))
 '''
 
 
-def make(name: str) -> str:
+EF_CHILD = r'''
+import json, pickle, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from dealii_asm_tpu_torch.fem.dofs import DofHandler
+from dealii_asm_tpu_torch.kernels.lanes_laplace import (lanes_laplace,
+                                                        lanes_laplace_plain)
+from dealii_asm_tpu_torch.kernels.merged_laplace import (merged_laplace,
+                                                         merged_laplace_plain)
+from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+from dealii_asm_tpu_torch.ops.laplace_general import GeneralLaplaceOperator
+
+
+def ms(fn, reps=None):
+    """CUDA-event ms a call over about 30 ms of back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    if reps is None:
+        reps = max(50, min(3000, int(30 / ms(fn, 10))))
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def graph_ms(fn):
+    """Device ms a call without the host's launch cost: one call captured
+    in a CUDA graph, replayed."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return ms(graph.replay)
+    except RuntimeError as err:
+        print(f"graph capture failed: {err}", file=sys.stderr)
+        return None
+
+
+def split(fn):
+    """Device us a call of each kernel fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        for name in ("cells_kernel", "gather_kernel", "scatter_kernel"):
+            if name in ev.key and us:
+                out[name] = us / 10
+    return out
+
+
+def rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+g = torch.Generator(device="cuda").manual_seed(1)
+out = {}
+for p in (4, 2, 1):
+    dofs = DofHandler(StructuredMesh(3, (48, 48, 48),
+                                     transform=kershaw_transform(0.3, 0.3)), p)
+    x64 = torch.randn(dofs.n_dofs, device="cuda", dtype=torch.float64,
+                      generator=g)
+    for dt, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        op = LaplaceOperator(dofs, dtype=dt, device="cuda", mapping_degree=3)
+        x = x64.to(dt)
+        key = f"E_{tag}_q{p}"
+        out[key + "_ms"] = ms(lambda: merged_laplace(x, op.tables))
+        out[key + "_graph_ms"] = graph_ms(lambda: merged_laplace(x, op.tables))
+        if p == 4:
+            out[key + "_split_us"] = split(lambda: merged_laplace(x, op.tables))
+        out[key + "_rel_err"] = rel(merged_laplace(x, op.tables),
+                                    merged_laplace_plain(x, op.tables))
+        del op
+        torch.cuda.empty_cache()
+from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+mesh = hyper_ball_balanced(3)
+for _ in range(4):
+    mesh = mesh.refine()
+dofs = GeneralDofHandler.__new__(GeneralDofHandler)
+with open(sys.argv[3], "rb") as f:
+    dofs.__dict__.update(pickle.load(f))
+object.__setattr__(dofs, "mesh", mesh)  # a frozen dataclass
+x64 = torch.randn(dofs.n_dofs, device="cuda", dtype=torch.float64,
+                  generator=g)
+for dt, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+    op = GeneralLaplaceOperator(dofs, dtype=dt, device="cuda")
+    x = x64.to(dt)
+    out[f"F_{tag}_q4_ms"] = ms(lambda: lanes_laplace(x, op.tables))
+    out[f"F_{tag}_q4_graph_ms"] = graph_ms(lambda: lanes_laplace(x, op.tables))
+    out[f"F_{tag}_q4_split_us"] = split(lambda: lanes_laplace(x, op.tables))
+    out[f"F_{tag}_q4_rel_err"] = rel(lanes_laplace(x, op.tables),
+                                     lanes_laplace_plain(x, op.tables))
+    del op
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out))
+'''
+
+
+def ball_tables() -> str:
+    """The ball's Q4 DoF handler at 4 refinements (131,072 cells), pickled
+    once for every variant's process."""
+    import pickle
+
+    sys.path.insert(0, ROOT)
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+
+    path = os.path.join(WORK, "ball_q4.pkl")
+    mesh = hyper_ball_balanced(3)
+    for _ in range(4):
+        mesh = mesh.refine()
+    dofs = GeneralDofHandler(mesh, 4)
+    dofs.cell_dofs, dofs.boundary_mask, dofs.n_dofs  # the cached tables
+    with open(path, "wb") as f:  # the mesh holds a closure: rebuilt there
+        pickle.dump({k: v for k, v in vars(dofs).items() if k != "mesh"}, f)
+    return path
+
+
+def make(name: str, variants=VARIANTS) -> str:
     """A copy of the package with the variant's edits."""
     d = os.path.join(WORK, name)
     shutil.rmtree(d, ignore_errors=True)
@@ -165,7 +398,7 @@ def make(name: str) -> str:
                     os.path.join(d, "dealii_asm_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(d, "dealii_asm_tpu_torch", "kernels", "csrc")
-    for fname, old, new in VARIANTS[name]:
+    for fname, old, new in variants[name]:
         path = os.path.join(csrc, fname)
         with open(path) as f:
             src = f.read()
@@ -182,8 +415,14 @@ def main(argv) -> int:
         i = argv.index("--parent")
         parent = os.path.abspath(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    names = (list(VARIANTS) if argv == ["all"] else argv) or list(DEFAULT)
-    dirs = {n: make(n) for n in names}
+    ef = argv[:1] == ["ef"]
+    if ef:
+        argv = argv[1:]
+    variants = EF_VARIANTS if ef else VARIANTS
+    names = ((list(variants) if argv == ["all"] else argv)
+             or list(EF_DEFAULT if ef else DEFAULT))
+    os.makedirs(WORK, exist_ok=True)
+    dirs = {n: make(n, variants) for n in names}
     if parent is not None:
         dirs["parent"] = parent
     t0 = time.perf_counter()
@@ -202,16 +441,21 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if ef:
+        t0 = time.perf_counter()
+        ball = ball_tables()
+        print(f"ball DoF tables built in {time.perf_counter() - t0:.1f} s")
     c_out = {n: os.path.join(WORK, f"{n}_C.pt") for n in dirs}
     for _ in range(2):
         for n, d in dirs.items():
-            out = subprocess.run([sys.executable, "-c", CHILD, d, c_out[n]],
-                                 capture_output=True, text=True)
+            cmd = ([sys.executable, "-c", EF_CHILD, d, "-", ball] if ef
+                   else [sys.executable, "-c", CHILD, d, c_out[n]])
+            out = subprocess.run(cmd, capture_output=True, text=True)
             line = [x for x in out.stdout.splitlines()
                     if x.startswith("RESULT ")]
             edits = ("; ".join(new.strip().splitlines()[-1].strip()
-                               for _, _, new in VARIANTS[n]) if n in VARIANTS
-                     else d) or "as planned"
+                               for _, _, new in variants[n] if new.strip())
+                     if n in variants else d) or "as planned"
             print(f"{n} ({edits}): "
                   + (line[0][7:] if line else out.stderr[-2000:]), flush=True)
     import torch
