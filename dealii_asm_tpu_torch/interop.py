@@ -129,10 +129,29 @@ def general_transfer_from_jax(tr, dtype=torch.float64, device=DEFAULT_DEVICE,
         dtype=dtype, device=device, T1=np.asarray(tr.T1, np.float64))
 
 
+def ras_axis_masks(ras_mask, n_cells: tuple) -> list:
+    """Per-direction (C_d, m) masks (x first) whose tensor product is the
+    (C, m³) RAS mask ``ras_mask`` of a JAX ``ASMPreconditioner`` (cells and
+    local nodes x fastest); ValueError if it is not such a product."""
+    cx, cy, cz = n_cells
+    mask = np.asarray(ras_mask, np.float64)
+    m = round(mask.shape[1] ** (1.0 / 3.0))
+    g = mask.reshape(cz, cy, cx, m, m, m)
+    # the (cell, slot) axes of x, y and z in g; the rest reduce away
+    mx, my, mz = (g.max(axis=tuple(a for a in range(6) if a not in keep))
+                  for keep in ((2, 5), (1, 4), (0, 3)))
+    prod = (mz[:, None, None, :, None, None] * my[None, :, None, None, :, None]
+            * mx[None, None, :, None, None, :])
+    if not np.array_equal(prod, g):
+        raise ValueError("the RAS mask is not a per-axis tensor product")
+    return [mx, my, mz]
+
+
 def asm_from_jax(asm, dtype=torch.float64, device=DEFAULT_DEVICE):
     """Port FDM Schwarz from a JAX ``ASMPreconditioner``: its per-coordinate
-    eigen-tables ``percoord`` (Cartesian; its ``global_fdm`` is built from
-    them) or its per-cell ``collection`` (deformed)."""
+    eigen-tables ``percoord`` at any overlap (Cartesian; its ``global_fdm``
+    is built from them) with its RAS mask factored per axis, or its
+    per-cell ``collection`` (deformed)."""
     if asm.patch_type != "element":
         raise ValueError("the JAX preconditioner has no element tables")
     dofs = dofs_from_jax(asm.dofs)
@@ -150,9 +169,11 @@ def asm_from_jax(asm, dtype=torch.float64, device=DEFAULT_DEVICE):
                          "element tables")
     percoord = [(np.asarray(V, np.float64), np.asarray(lam, np.float64))
                 for V, lam in asm.percoord]
+    ras = (None if asm.ras_mask is None
+           else ras_axis_masks(asm.ras_mask, dofs.mesh.n_cells))
     return ASMPreconditioner(dofs, n_overlap=asm.n_overlap,
                              weighting_type=asm.weighting_type, dtype=dtype,
-                             device=device, percoord=percoord)
+                             device=device, percoord=percoord, ras_masks=ras)
 
 
 def transfer_from_jax(tr, dtype=torch.float64,

@@ -4,7 +4,7 @@ Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
 structured families ``hypercube``, ``anisotropy`` and the deformed
 ``kershaw``/``kershaw-mp``, and the unstructured ``hyperball``, on one
 device: mesh → float64 operator → multigrid (h, p, hp or ph levels,
-float32 by default) behind a precision adapter → CG with deal.II's
+float32 by default) behind a precision adapter → CG or GMRES with deal.II's
 ReductionControl.  The result dict carries the
 same keys (``it``, ``converged``, ``time``, ``solution`` ...), plus
 ``setup_time``, the first solve's ``residuals`` and the ``preconditioner``.
@@ -264,7 +264,7 @@ def _check_unported_options(params: dict, device: torch.device) -> None:
     # direction, which no 3D mesh satisfies
     if get_param(params, "mixed precision solve", "auto") is True:
         raise NotImplementedError(
-            "mixed-precision refinement is not ported yet (ROADMAP item 11)")
+            "mixed-precision refinement is not ported yet (ROADMAP item 11c)")
 
 
 def run_config(params: dict, table: ConvergenceTable | None = None,
@@ -316,10 +316,22 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     log(f"   - abs tolerance:  {abs_tol:g}")
     log(f"   - rel tolrance:   {rel_tol:g}")
 
+    kwargs = {}
+    if solver_type == "GMRES":  # ``poisson.py:488-498``
+        kwargs["right_preconditioning"] = get_param(
+            solver_p, "use right preconditioning", True)
+        ortho = get_param(solver_p, "orthogonalization strategy",
+                          "classical gram schmidt")
+        kwargs["orthogonalization"] = (
+            "classical" if ortho.startswith("classical") else "modified")
+        mtv = int(get_param(solver_p, "max n tmp vectors", 0))
+        if mtv > 0:
+            kwargs["restart"] = mtv - 2
+
     def dispatch():
         return krylov_solve(solver_type, op.vmult, b, M=precon.vmult,
                             max_iterations=max_it, abs_tolerance=abs_tol,
-                            rel_tolerance=rel_tol)
+                            rel_tolerance=rel_tol, **kwargs)
 
     synchronize(device)
     setup_time = time.perf_counter() - t_setup

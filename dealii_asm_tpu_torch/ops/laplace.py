@@ -20,14 +20,14 @@ import torch
 from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..fem.lagrange import shape_1d, tensor_values
+from ..fem.lagrange import shape_1d, tensor_gradient, tensor_values
 from ..kernels.banded_laplace import BandedTables, banded_laplace
 from ..kernels.merged_laplace import MergedTables, merged_laplace
 from .geometry import compute_geometry
 from .lattice import cells_to_grid_sliced
-from .tensorops import (banded_diagonals, global_laplace_1d_factors,
-                        interp_direction_transform, outer_grid,
-                        pack_merged_coeff)
+from .tensorops import (banded_diagonals, cell_diagonal,
+                        global_laplace_1d_factors, interp_direction_transform,
+                        outer_grid, pack_merged_coeff)
 
 
 def check_structured_3d(dofs) -> None:
@@ -147,11 +147,20 @@ class LaplaceOperator(nn.Module):
         """1 / diag(A) in the operator's dtype, constrained rows 1
         (``laplace.py:771-806``).  Cartesian: diag(Σ_d ⊗ M̂…K̂_d…M̂) is the
         sum over d of outer products of the global 1D diagonals, z slowest,
-        formed in the operator's dtype in the JAX package's order."""
+        formed in the operator's dtype in the JAX package's order.
+        Deformed: each cell's diagonal from the merged coefficients
+        (``tensorops.cell_diagonal``, box-coordinate gradients), summed
+        into the nodes by the lattice's overlap-add, a fixed order."""
+        one = torch.ones((), dtype=self.dtype, device=self.device)
         if self.deformed:
-            raise NotImplementedError(
-                "the inverse diagonal of a deformed operator is not ported "
-                "yet (ROADMAP item 11)")
+            s = shape_1d(self.degree, self.degree + 1)
+            h = self.dofs.mesh.h
+            grad = np.stack([tensor_gradient(s.N, s.D, self.dim)[:, :, d]
+                             / h[d] for d in range(self.dim)], axis=2)
+            local = cell_diagonal(self.coeff6, grad)
+            diag = cells_to_grid_sliced(local, self.dofs.mesh.n_cells,
+                                        self.degree)
+            return 1.0 / torch.where(self.free, diag, one).reshape(-1)
         dM = [self._tensor(np.diagonal(M)) for M in self.M1d_global]
         dK = [self._tensor(np.diagonal(K)) for K in self.K1d_global]
         diag = None
@@ -162,8 +171,7 @@ class LaplaceOperator(nn.Module):
             for v in vecs[1:]:
                 term = (term[:, None] * v[None, :]).reshape(-1)
             diag = term if diag is None else diag + term
-        diag = torch.where(self.free.reshape(-1), diag,
-                           torch.ones((), dtype=self.dtype, device=self.device))
+        diag = torch.where(self.free.reshape(-1), diag, one)
         return 1.0 / diag
 
     def assemble_rhs(self, rhs: str = "constant") -> torch.Tensor:

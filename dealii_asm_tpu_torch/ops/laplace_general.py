@@ -18,11 +18,11 @@ import torch
 from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..fem.lagrange import shape_1d, tensor_values
+from ..fem.lagrange import shape_1d, tensor_gradient, tensor_values
 from ..kernels.lanes_laplace import lanes_laplace, lanes_tables
 from .geometry import compute_geometry
 from .fixed_sum import FixedOrderSum
-from .tensorops import pack_merged_coeff
+from .tensorops import cell_diagonal, pack_merged_coeff
 
 
 def default_mapping_degree(mesh) -> int:
@@ -88,10 +88,16 @@ class GeneralLaplaceOperator(nn.Module):
     def forward(self, u):
         return self.vmult(u)
 
-    def compute_inverse_diagonal(self):
-        raise NotImplementedError(
-            "the inverse diagonal of an unstructured operator is not ported "
-            "yet (ROADMAP item 11)")
+    def compute_inverse_diagonal(self) -> torch.Tensor:
+        """1 / diag(A) in the operator's dtype, constrained rows 1: each
+        cell's diagonal in the six-pair form over ``coeff6``
+        (``laplace_general.py:418-440``), summed into the DoFs in a fixed
+        order (``FixedOrderSum``), so repeats are bit-identical."""
+        s = shape_1d(self.degree, self.degree + 1)
+        local = cell_diagonal(self.coeff6, tensor_gradient(s.N, s.D, self.dim))
+        diag = FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(local)
+        one = torch.ones((), dtype=self.dtype, device=self.device)
+        return 1.0 / torch.where(self.tables.free, diag, one)
 
     def assemble_rhs(self, rhs: str = "constant") -> torch.Tensor:
         """b_i = ∫ f φ_i for f = 1: jxw times the basis values at the

@@ -93,6 +93,19 @@ def pack_merged_coeff(coeff: torch.Tensor, h) -> torch.Tensor:
                         for a, b in SYM_PAIRS], dim=1)
 
 
+def cell_diagonal(coeff6: torch.Tensor, grad: np.ndarray) -> torch.Tensor:
+    """(C, L) diagonal of each cell matrix, Σ_q Σ_ab C_ab(q) ∂_a φ_l ∂_b φ_l,
+    in the six-pair form over the packed coefficients (C, 6, Q) (pairs off
+    the diagonal count twice); ``grad`` (Q, L, 3) holds the basis gradients
+    in the coefficients' coordinates (``laplace_general.py:418-440``)."""
+    C, six, Q = coeff6.shape
+    BB = np.stack([grad[:, :, a] * grad[:, :, b] * (1.0 if a == b else 2.0)
+                   for a, b in SYM_PAIRS])  # (6, Q, L)
+    BB = torch.as_tensor(BB.reshape(six * Q, -1), dtype=coeff6.dtype,
+                         device=coeff6.device)
+    return coeff6.reshape(C, six * Q) @ BB
+
+
 def merged_coeff_qgrid(coeff6: torch.Tensor, cells_zyx: tuple, qn: int):
     """Cell-major (C, 6, Q) → six (Cz·q, Cy·q, Cx·q) q-grids (the JAX
     package's ``coeff6`` layout)."""

@@ -1,23 +1,32 @@
 """Additive Schwarz preconditioner with FDM local solves (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/precond/asm.py::ASMPreconditioner`` for
-element-centric overlap-1 patches on structured meshes, in two forms:
+element-centric patches on structured meshes, in two forms:
 
 - ``ASMPreconditioner``, uniform Cartesian meshes: the ``global_fdm`` form
   (``asm.py:287-313``, ``_vmult_global_fdm`` :527), whose tables come
   straight from the per-coordinate 1D eigenproblems
-  (``precond/fdm.py::percoord_eigendecomposition``) in O(N_d) per axis; the
-  apply is kernel B (``kernels/fdm_patch.py``).
+  (``precond/fdm.py::percoord_eigendecomposition``) in O(N_d) per axis.  At
+  overlap 1 with a multiplicity weighting the apply is kernel B
+  (``kernels/fdm_patch.py``).  Overlap 2..p (patch size m = p − 1 + 2·o,
+  ``asm.py:195-216``) and restricted Schwarz (RAS, each node written only
+  by the lowest-index patch that holds it, ``_ras_ownership`` :448) take
+  the plain global form, six dense per-axis products, on every device, as
+  the JAX package does (its Pallas kernel refuses them,
+  ``ops/pallas/fdm_slab.py:151-154``).
 - ``CellASMPreconditioner``, deformed meshes whose 1D patch matrices do not
   factor per coordinate (``asm.py:188-217``, ``:320-343``, ``:611-628``): one
   eigen-table per cell and direction, deduplicated by key, and the apply as
   batched per-cell (m × m) products in plain torch, the JAX ``_fdm_apply``
-  form (``asm.py:466-490``).  The JAX package applies these tables in XLA,
-  not in a Pallas kernel.
+  form (``asm.py:466-490``), at overlap 1.  The JAX package applies these
+  tables in XLA, not in a Pallas kernel.
 
 In both, the multiplicity weights (none/pre/post/symm) and the Dirichlet
 masks are separable per axis on the lattice, so they fold into per-axis
-vectors (``fin``/``fout``).
+vectors (``fin``/``fout``).  So does RAS on the lattice: with cells numbered
+x fastest, the lowest-index window holding a node is the lowest window along
+each axis, so the ownership mask is a tensor product of per-axis (window,
+slot) masks (``ras_axis_mask``), folded into the output-side transforms.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch
 from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..kernels.fdm_patch import FDMTables, fdm_patch
+from ..kernels.fdm_patch import FDMTables, fdm_patch, fdm_patch_plain
 from ..ops.laplace import check_structured_3d
 from ..ops.lattice import cells_to_grid_sliced, grid_to_cells_sliced
 from ..ops.tensorops import fdm_direction_transform, outer_grid
@@ -35,61 +44,103 @@ from .fdm import (FDMCollection, batched_generalized_eigh,
                   fdm_1d_matrices_batched, percoord_eigendecomposition)
 
 _FOLD_EXPONENTS = {"none": (0.0, 0.0), "pre": (1.0, 0.0),
-                   "post": (0.0, 1.0), "symm": (0.5, 0.5)}
+                   "post": (0.0, 1.0), "symm": (0.5, 0.5), "ras": (0.0, 0.0)}
 
 
-def axis_weight(n_nodes: int, n_cells: int, degree: int) -> np.ndarray:
-    """1D multiplicity weight of element windows along one axis
-    (``asm.py:382``); the node weights are the tensor product ⊗_d w_d."""
+def axis_window_starts(n_cells: int, degree: int, n_overlap: int = 1):
+    """First node of each element window along one axis (``asm.py:371``):
+    c·p − (o − 1); slots before 0 or past the last node are ghosts."""
+    return [c * degree - (n_overlap - 1) for c in range(n_cells)]
+
+
+def axis_weight(n_nodes: int, n_cells: int, degree: int,
+                n_overlap: int = 1) -> np.ndarray:
+    """1D multiplicity weight of element windows of size p − 1 + 2·o along
+    one axis (``asm.py:382-401``); the node weights are the tensor product
+    ⊗_d w_d."""
+    m = degree - 1 + 2 * n_overlap
     counts = np.zeros(n_nodes)
-    for c in range(n_cells):
-        counts[c * degree: c * degree + degree + 1] += 1.0
+    for start in axis_window_starts(n_cells, degree, n_overlap):
+        counts[max(start, 0):min(start + m, n_nodes)] += 1.0
     counts[counts == 0] = 1.0
     return 1.0 / counts
 
 
-def _check_options(weighting_type: str, n_overlap: int) -> None:
+def ras_axis_mask(free: np.ndarray, n_cells: int, degree: int,
+                  n_overlap: int = 1) -> np.ndarray:
+    """(W, m) RAS mask of one axis: 1 where window w's slot s holds a free
+    node and w is the lowest window holding it, else 0.  The (C, m³) mask
+    of ``asm.py::_ras_ownership`` is the tensor product of the three."""
+    m = degree - 1 + 2 * n_overlap
+    n_nodes = free.shape[0]
+    owner = np.full(n_nodes, -1)
+    mask = np.zeros((n_cells, m))
+    for w, start in enumerate(axis_window_starts(n_cells, degree, n_overlap)):
+        for s in range(m):
+            n = start + s
+            if 0 <= n < n_nodes and owner[n] < 0:
+                owner[n] = w
+                mask[w, s] = free[n]
+    return mask
+
+
+def _check_options(weighting_type: str, n_overlap: int, degree: int) -> None:
     if weighting_type not in _FOLD_EXPONENTS:
-        raise NotImplementedError(
-            f"weighting {weighting_type!r} is not ported yet "
-            "(RAS: ROADMAP item 10)")
-    if n_overlap != 1:
-        raise NotImplementedError(
-            f"n overlap {n_overlap}: the port has overlap 1 only "
-            "(ROADMAP item 10)")
+        raise ValueError(f"weighting type {weighting_type!r}")
+    if not 1 <= n_overlap <= degree:
+        raise ValueError(f"n overlap {n_overlap} outside 1..{degree}")
 
 
-def _axis_folds(dofs, weighting_type: str, d: int):
+def _check_overlap_one(weighting_type: str, n_overlap: int) -> None:
+    """The per-cell forms (deformed and unstructured meshes) run overlap 1
+    with a multiplicity weighting."""
+    if weighting_type == "ras" or n_overlap != 1:
+        raise NotImplementedError(
+            f"n overlap {n_overlap}, weighting {weighting_type!r}: on "
+            "deformed and unstructured meshes the port has overlap-1 "
+            "multiplicity weightings only (ROADMAP item 10a, deformed and "
+            "ball forms)")
+
+
+def _axis_folds(dofs, weighting_type: str, d: int, n_overlap: int = 1):
     """(fin, fout) of direction d: free mask times the 1D multiplicity
-    weight to the power the weighting gives each side."""
+    weight to the power the weighting gives each side (RAS: the free mask
+    on both sides; its ownership goes into the output transform)."""
     a_in, a_out = _FOLD_EXPONENTS[weighting_type]
     free = dofs.free_1d(d)
-    w = axis_weight(dofs.nodes_per_dim[d], dofs.mesh.n_cells[d], dofs.degree)
+    w = axis_weight(dofs.nodes_per_dim[d], dofs.mesh.n_cells[d], dofs.degree,
+                    n_overlap)
     return free * w ** a_in, free * w ** a_out
 
 
 class ASMPreconditioner(nn.Module):
-    """Element-centric overlap-1 additive Schwarz with FDM local solves.
+    """Element-centric additive (or restricted, ``"ras"``) Schwarz with FDM
+    local solves on a Cartesian mesh, overlap 1..p.
 
     ``percoord`` (optional): per-direction (V (C_d, m, m), λ (C_d, m)) NumPy
-    tables; by default they are built here (``interop.py`` passes the JAX
-    ones).
+    tables; ``ras_masks`` (optional): per-direction (C_d, m) RAS masks; by
+    default both are built here (``interop.py`` passes the JAX ones).
+    ``fused`` says whether the apply is kernel B, and the level may take the
+    fused smoother kernels C and D: overlap 1 with a multiplicity weighting.
     """
 
     is_symmetric = True
 
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
-                 dtype=torch.float64, device=DEFAULT_DEVICE, percoord=None):
+                 dtype=torch.float64, device=DEFAULT_DEVICE, percoord=None,
+                 ras_masks=None):
         super().__init__()
-        _check_options(weighting_type, n_overlap)
+        _check_options(weighting_type, n_overlap, dofs.degree)
         check_structured_3d(dofs)
         if dofs.mesh.transform is not None:
             raise ValueError("a deformed mesh takes CellASMPreconditioner")
         self.dofs = dofs
         self.dim = dofs.mesh.dim
         self.degree = dofs.degree
+        self.n_overlap = n_overlap
         self.weighting_type = weighting_type
         self.is_symmetric = weighting_type in ("none", "symm")
+        self.fused = n_overlap == 1 and weighting_type != "ras"
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = dofs.mesh
@@ -98,15 +149,27 @@ class ASMPreconditioner(nn.Module):
             percoord = percoord_eigendecomposition(mesh, p, n_overlap)
         self.percoord = [(np.asarray(V, np.float64), np.asarray(l, np.float64))
                          for V, l in percoord]
+        if weighting_type == "ras" and ras_masks is None:
+            ras_masks = [ras_axis_mask(dofs.free_1d(d), mesh.n_cells[d], p,
+                                       n_overlap) for d in range(self.dim)]
+        self.ras_masks = (None if ras_masks is None else
+                          [np.asarray(r, np.float64) for r in ras_masks])
         names = ("V", "lam", "fin", "fout", "G", "Gt")
         lam_flat = []
         for d in range(self.dim):
             V, lam = self.percoord[d]
-            fin, fout = _axis_folds(dofs, weighting_type, d)
-            G = fdm_direction_transform(V, dofs.nodes_per_dim[d], p,
-                                        n_overlap, False)
+            n_d = dofs.nodes_per_dim[d]
+            fin, fout = _axis_folds(dofs, weighting_type, d, n_overlap)
+            G = fdm_direction_transform(V, n_d, p, n_overlap, False)
+            if self.ras_masks is None:
+                Gt = (G * fout[None, :]).T
+            else:
+                # the owner's slots only: V_w's row s scaled by mask[w, s]
+                Gt = fdm_direction_transform(
+                    V * self.ras_masks[d][:, :, None], n_d, p, n_overlap,
+                    False).T
             for name, arr in zip(names, (V, lam, fin, fout, G * fin[None, :],
-                                         (G * fout[None, :]).T)):
+                                         Gt)):
                 self.register_buffer(f"{name}{d}", self._tensor(arr))
             lam_flat.append(getattr(self, f"lam{d}").reshape(-1))
         lx, ly, lz = lam_flat
@@ -129,9 +192,10 @@ class ASMPreconditioner(nn.Module):
                 [l.reshape(-1) for l in self.tables.lam])
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
+        apply = fdm_patch if self.fused else fdm_patch_plain
         if src.dtype == self.dtype:
-            return fdm_patch(src, self.tables)
-        return fdm_patch(src.to(self.dtype), self.tables).to(src.dtype)
+            return apply(src, self.tables)
+        return apply(src.to(self.dtype), self.tables).to(src.dtype)
 
     def forward(self, src):
         return self.vmult(src)
@@ -193,7 +257,8 @@ def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor):
 
 class CellASMPreconditioner(nn.Module):
     """Element-centric overlap-1 additive Schwarz with per-cell FDM local
-    solves, for deformed meshes.
+    solves, for deformed meshes (overlap > 1 and RAS raise: ROADMAP item
+    10a, deformed form).
 
     ``collection`` (optional): the NumPy ``FDMCollection`` (eigvecs[d]
     (U_d, m, m), eigvals[d] (U_d, m), ids (C, dim)); by default it is built
@@ -203,7 +268,7 @@ class CellASMPreconditioner(nn.Module):
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
                  dtype=torch.float64, device=DEFAULT_DEVICE, collection=None):
         super().__init__()
-        _check_options(weighting_type, n_overlap)
+        _check_overlap_one(weighting_type, n_overlap)
         check_structured_3d(dofs)
         self.dofs = dofs
         self.dim = dofs.mesh.dim

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.fixed_sum import FixedOrderSum
-from .asm import (_check_options, cell_fdm_apply, cell_fdm_tables,
+from .asm import (_check_overlap_one, cell_fdm_apply, cell_fdm_tables,
                   element_fdm_collection)
 
 
@@ -37,7 +37,7 @@ class GeneralASMPreconditioner(nn.Module):
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
                  dtype=torch.float64, device=DEFAULT_DEVICE, collection=None):
         super().__init__()
-        _check_options(weighting_type, n_overlap)
+        _check_overlap_one(weighting_type, n_overlap)
         mesh = dofs.mesh
         if mesh.dim != 3:
             raise NotImplementedError(

@@ -1,15 +1,17 @@
 """JSON-driven preconditioner factory (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, Diagonal,
-FDM (element-centric overlap 1; per-coordinate tables on Cartesian meshes,
-per-cell tables on deformed and unstructured ones), AMG (the dense direct
-coarse solve), CoarseCG (diagonal-preconditioned CG to a reduction),
-Relaxation and Chebyshev, with the reference's defaults.  On CUDA, every
-Relaxation or Chebyshev level around a Cartesian FDM preconditioner gets
-the fused smoother step (kernel C), and, when its degree is named in
-``DEALII_ASM_TPU_CHAIN_DEGREES`` (none by default, as in the JAX package),
-the fused sweep (kernel D); there is no size gate and no fallback.  Other
-types raise NotImplementedError naming their ROADMAP item.
+FDM (element-centric; per-coordinate tables on Cartesian meshes at overlap
+1..p with any weighting, RAS included; per-cell tables on deformed and
+unstructured ones at overlap 1), AMG (the dense direct coarse solve),
+CoarseCG (diagonal-preconditioned CG to a reduction), Relaxation and
+Chebyshev, with the reference's defaults.  On CUDA, every Relaxation or
+Chebyshev level around an overlap-1 Cartesian FDM preconditioner with a
+multiplicity weighting gets the fused smoother step (kernel C), and, when
+its degree is named in ``DEALII_ASM_TPU_CHAIN_DEGREES`` (none by default, as
+in the JAX package), the fused sweep (kernel D); there is no size gate and
+no fallback.  Other types and options raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ def _chain_win_degrees() -> set:
 
 def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
     """Attach the fused kernels on Cartesian CUDA levels whose inner
-    preconditioner is the per-coordinate FDM Schwarz apply
+    preconditioner is the per-coordinate FDM Schwarz apply of kernel B
     (``factory.py:51-134``, without the TPU's size gate).  A deformed level
     has no banded tables and no kernel B tables, so it keeps the unfused
-    smoother, as does an unstructured level, as in the JAX package."""
+    smoother, as does an unstructured level, as in the JAX package; so does
+    an overlap > 1 or RAS level, whose windows kernels B, C and D do not
+    tile (the JAX kernels refuse them, ``smoother_step.py:1085-1089``)."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
-            or not isinstance(op.tables, BandedTables)):
+            or not inner.fused or not isinstance(op.tables, BandedTables)):
         return
     attach_fused_kernels(smoother, op, inner, log)
 
@@ -162,16 +166,18 @@ def create_system_preconditioner(op, params: dict, log=_noop_log):
     if ptype in ("AdditiveSchwarzPreconditioner", "SubMeshPreconditioner",
                  "CGPreconditioner"):
         raise NotImplementedError(
-            f"preconditioner {ptype!r} is not ported yet (ROADMAP item 11)")
+            f"preconditioner {ptype!r} is not ported yet (ROADMAP item 11c)")
     raise ValueError(f"Preconditioner <{ptype}> is not known!")
 
 
 def _create_fdm(op, params: dict, log):
+    # overlap o needs the patch size p − 1 + 2·o within the neighbours' p
+    # nodes (``factory.py:261``): a degree-1 level clamps 2 to 1
     n_overlap = min(int(get_param(params, "n overlap", 1)), op.degree)
     weighting = get_param(params, "weighting type", "symm")
     if not get_param(params, "element centric", True):
         raise NotImplementedError(
-            "vertex patches are not ported yet (ROADMAP item 10)")
+            "vertex patches are not ported yet (ROADMAP item 10b)")
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
     log(f"    - weighting type:         {weighting}\n")

@@ -11,9 +11,12 @@ first timed solve (after the warm-up solve): device time by kernel name, the
 solve's wall time, the device's idle share 1 − busy/wall, busy being the
 union of the kernels' intervals, and the number of device operations
 (kernels, copies, fills) the solve issued; then each of the port's own
-kernels (one line per instantiation) with its launches and device ms.
+kernels (one line per instantiation) with its launches and device ms.  The
+warm-up solve runs under ``torch.cuda.set_sync_debug_mode("warn")``, which
+warns once per call that waits for the device: their count over the
+iterations is the host syncs per iteration.
 
-``sensitivity``: the CG iteration count, the last residuals over the
+``sensitivity``: the iteration count, the last residuals over the
 stopping threshold and the levels' Lanczos estimates of the largest
 eigenvalue, on the CPU's plain path and on the card with the config's
 Laplace kernel (E on Kershaw meshes, F on the hyperball) or its plain
@@ -50,6 +53,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -99,6 +103,17 @@ def profile(params: dict, rows: int = 25) -> None:
 
     def second_solve_profiled(*args, **kwargs):
         state["calls"] = state.get("calls", 0) + 1
+        if state["calls"] == 1:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    result = solve(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            state["syncs"] = sum("synchroniz" in str(w.message)
+                                 for w in caught)
+            return result
         if state["calls"] != 2:
             return solve(*args, **kwargs)
         torch.cuda.synchronize()
@@ -123,6 +138,8 @@ def profile(params: dict, rows: int = 25) -> None:
     print(f"{res['n_dofs']} DoFs, {res['it']} iterations, profiled solve "
           f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
           f"{1.0 - busy / wall:.3f}, {n_dev} device operations")
+    print(f"host syncs in the warm-up solve: {state['syncs']}, "
+          f"{state['syncs'] / max(res['it'], 1):.2f} per iteration")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=rows))
     # the port's own kernels in full (the table cuts their names and rows)

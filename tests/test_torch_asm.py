@@ -101,11 +101,18 @@ def test_interop_drives_port_with_jax_tables():
 
 
 def test_unported_options_raise():
-    dofs = DofHandler(StructuredMesh(3, (2, 2, 2)), 3)
+    """RAS and overlap 2 run on Cartesian meshes
+    (``test_torch_asm_overlap.py``); on a deformed mesh, whose per-cell form
+    is overlap 1 only, they still raise naming ROADMAP item 10."""
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+    from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
+
+    dofs = DofHandler(StructuredMesh(3, (2, 2, 2),
+                                     transform=kershaw_transform(0.3, 0.3)), 3)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ASMPreconditioner(dofs, weighting_type="ras", device="cpu")
+        CellASMPreconditioner(dofs, weighting_type="ras", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ASMPreconditioner(dofs, n_overlap=2, device="cpu")
+        CellASMPreconditioner(dofs, n_overlap=2, device="cpu")
 
 
 # -- deformed meshes: per-cell FDM tables (CellASMPreconditioner) ------------

@@ -160,9 +160,17 @@ def test_inverse_diagonal_matches_jax(p):
 
 
 def test_inverse_diagonal_of_deformed_operator_not_ported():
+    """The deformed inverse diagonal is ported: it equals the JAX one to
+    rel 1e-12 (more cases in ``test_torch_diagonal.py``)."""
+    from dealii_asm_tpu.mesh.transforms import kershaw_transform as jk
     from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
 
     mesh = StructuredMesh(3, (2, 2, 2), transform=kershaw_transform(0.3, 0.3))
-    op = LaplaceOperator(DofHandler(mesh, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        op.compute_inverse_diagonal()
+    dofs = DofHandler(mesh, 2)
+    op = LaplaceOperator(dofs, device="cpu")
+    ref = np.asarray(JaxLaplace(
+        JaxDofHandler(JaxMesh(3, (2, 2, 2), transform=jk(0.3, 0.3)), 2),
+        mapping_degree=2, dtype=jnp.float64).compute_inverse_diagonal())
+    got = op.compute_inverse_diagonal()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(got.numpy()[dofs.boundary_mask], 1.0)
