@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the whole check, one GPU
     python3 chip_smoke.py --quick    # build + kernel checks at 2^3 cells only
     python3 chip_smoke.py --only 9,13   # build + the named solve phases only
+    python3 chip_smoke.py --only 14,15,16   # build + the vertex-patch phases
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -96,12 +97,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ph-multigrid, per-cell FDM "post", Q4, 24^3 cells, 912,673 DoFs): E
    launched in both precisions; at 0 refinements the card within one
    iteration of the CPU (its last residual lies within 2% of the
-   threshold, ``probe sensitivity``).
-Phases 9 to 13 accept any converged count at full size (the JAX package has
+   threshold, ``probe sensitivity``);
+14. experiments/e2e_kershaw_fdmv.json (Kershaw eps 0.3, Q4, 48^3 cells,
+   7,189,057 DoFs, ph-multigrid, Chebyshev-2 around vertex-star FDM
+   "symm"): E launched in both precisions; its count printed beside the
+   reference's 49; before it, the Kershaw vertex and element overlap-2 RAS
+   FDM applies at 48^3 cells Q4;
+15. experiments/e2e_ball_fdmv.json (the ball at 3 refinements, 16,384
+   cells Q4, 1,061,121 DoFs, Chebyshev-1 around vertex FDM "symm"): F
+   launched in both precisions, two V-cycle applies bit-identical; before
+   it, the ball vertex FDM apply;
+16. the ladder's fdmv rung at 6 refinements (input_0027.json, 64^3 cells
+   Q4, 16,974,593 DoFs) derived with "mg type" "ph" (the hp original puts
+   p-levels on the 1-cell mesh, which has no interior vertex: it raises a
+   ValueError in both packages, and input_0003.json as written must raise
+   it on the card): A launched; before it, the Cartesian vertex FDM apply
+   at 64^3 cells Q4.
+Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
 refinements, input_0026 10 at 3, ball 0060 and 0000 5 and 5 at 1,
-default.json 101 at 0) and the card to the CPU path.
+default.json 101 at 0, e2e_kershaw_fdmv 44 at 1, e2e_ball_fdmv 6 at 1,
+the ph ladder fdmv 11 at 3) and the card to the CPU path (Kershaw within
+one iteration).  B, C and D are launched 0 times in phases 10, 11 and 14 to
+16.  Each FDM apply of phases 14 to 16 is held in float64 on the card to
+1e-12 of the CPU's float64 apply and in float32 to 1e-5, repeats
+bit-identical, and timed with CUDA events beside the element overlap-1
+apply on the same mesh (kernel B on the Cartesian one).
 The launch counts of each solve are set to 0 just before it and read just
 after.  Before the kernel table come E's times at the Kershaw level
 shapes.  The last two lines of standard output are the kernel table as JSON
@@ -137,6 +159,12 @@ LADDER_FDM2 = os.path.join(HERE, "experiments", "sweep_large_scaling",
 BALL_GMRES = os.path.join(HERE, "experiments", "sweep_ball", "input_0060.json")
 BALL_DIAG = os.path.join(HERE, "experiments", "sweep_ball", "input_0000.json")
 DEFAULT = os.path.join(HERE, "experiments", "default.json")
+KERSHAW_FDMV = os.path.join(HERE, "experiments", "e2e_kershaw_fdmv.json")
+BALL_FDMV = os.path.join(HERE, "experiments", "e2e_ball_fdmv.json")
+LADDER_FDMV = os.path.join(HERE, "experiments", "sweep_large_scaling",
+                           "input_0027.json")
+LADDER_FDMV_R0 = os.path.join(HERE, "experiments", "sweep_large_scaling",
+                              "input_0003.json")
 CHAIN_GATE = "DEALII_ASM_TPU_CHAIN_DEGREES"
 SEED = 20261016
 
@@ -953,7 +981,7 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
               it_full: int | None, n_dofs: int, kernels, counts,
               slack: int = 0, check_vcycle: bool = False, record=None,
               absent=(), best_of: int | None = None,
-              refinements: int | None = None):
+              refinements: int | None = None, precon: dict | None = None):
     """Phase 4 to 13: one config through run_config on the card, first (with
     ``n_small`` given) at ``n_small`` refinements against the plain CPU
     path, then at full size (the config's "n refinements", or
@@ -961,7 +989,8 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     just after.  Every kernel of ``kernels`` must be launched and none of
     ``absent``; ``counts`` takes the counts of ``record`` (default
     ``kernels``).  ``it_full`` None accepts any converged count; ``best_of``
-    overrides the config's.
+    overrides the config's, and ``precon`` updates its "preconditioner"
+    section (a derived config).
 
     The small case holds the CPU path to ``it_small`` (the JAX package's
     count), the card's solution to rel-l2 1e-6 of the CPU's, the first 20
@@ -987,6 +1016,9 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     if refinements is not None:
         params["n refinements"] = refinements
     name = os.path.basename(path)
+    if precon:
+        params["preconditioner"].update(precon)
+        name += f" derived with {json.dumps(precon)}"
     if n_small is not None:
         check_small(params, name, n_small, it_small, slack)
 
@@ -1140,8 +1172,9 @@ def plain_fdm_times() -> None:
 
 
 def run_new_paths(counts, phases) -> None:
-    """Phases 9 to 13 (those named in ``phases``): GMRES, overlap 2 and
-    RAS, and the inverse diagonal on the ball, through run_config."""
+    """Phases 9 to 16 (those named in ``phases``): GMRES, overlap 2 and
+    RAS, the inverse diagonal on the ball, and vertex patches, through
+    run_config."""
     absent_fused = ("fdm_patch", "smoother_step") + LADDER_KERNELS
     a_both = ("banded_laplace_f32", "banded_laplace_f64")
     if 9 in phases:
@@ -1171,6 +1204,134 @@ def run_new_paths(counts, phases) -> None:
         print("== phase 13: default.json (Kershaw, GMRES) on the card")
         run_solve(DEFAULT, 0, 101, None, 912_673, KERSHAW_KERNELS, counts,
                   slack=1, record=(), best_of=3)
+    run_vertex_paths(counts, phases)
+
+
+def patch_apply_cases(phase: int) -> tuple:
+    """(dofs, shape, cases, beside) of the FDM applies that
+    ``check_patch_applies`` holds and times for a phase: cases are
+    (label, make(dtype, device)), beside the (label, make) of the apply
+    printed beside them."""
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.models.poisson import make_mesh_family
+    from dealii_asm_tpu_torch.precond.asm import (ASMPreconditioner,
+                                                  CellASMPreconditioner)
+    from dealii_asm_tpu_torch.precond.asm_general import \
+        GeneralASMPreconditioner
+
+    if phase == 16:
+        dofs = DofHandler(StructuredMesh(3, (64, 64, 64)), 4)
+        cls, shape = ASMPreconditioner, "64^3 cells Q4"
+        beside = ("kernel B, element overlap 1 symm", dict())
+        cases = [("Cartesian vertex symm", dict(patch_type="vertex"))]
+    else:
+        with open(KERSHAW_FDMV if phase == 14 else BALL_FDMV) as f:
+            family = make_mesh_family(json.load(f))
+        dofs = family.dofs_at(3, 4)
+        if phase == 14:
+            cls, shape = CellASMPreconditioner, "Kershaw 48^3 cells Q4"
+            cases = [("Kershaw vertex symm", dict(patch_type="vertex")),
+                     ("Kershaw element overlap 2 RAS",
+                      dict(n_overlap=2, weighting_type="ras"))]
+        else:
+            cls, shape = GeneralASMPreconditioner, "ball 16384 cells Q4"
+            cases = [("ball vertex symm", dict(patch_type="vertex"))]
+        beside = ("per-cell element overlap 1 symm", dict())
+
+    def maker(kw):
+        kw = {"weighting_type": "symm", **kw}
+        return lambda dtype, device: cls(dofs, dtype=dtype, device=device,
+                                         **kw)
+
+    return dofs, shape, [(label, maker(kw)) for label, kw in cases], (
+        beside[0], maker(beside[1]))
+
+
+def check_patch_applies(phase: int) -> None:
+    """The phase's vertex (and per-patch overlap-2 RAS) FDM apply at its
+    solve's finest shape: float64 on the card within 1e-12 of the CPU's
+    float64 apply, float32 on the card within 1e-5 of it, each repeated
+    apply bit-identical; CUDA-event ms of both precisions, beside the
+    element overlap-1 apply on the same mesh (kernel B on the Cartesian
+    mesh, outside every solve's launch count)."""
+    import torch
+
+    dofs, shape, cases, (b_label, b_make) = patch_apply_cases(phase)
+    n = dofs.n_dofs
+    x64 = torch.randn(n, generator=torch.Generator().manual_seed(SEED),
+                      dtype=torch.float64)
+    xg = {torch.float64: x64.cuda(), torch.float32: x64.float().cuda()}
+    b32 = b_make(torch.float32, "cuda")
+    b_ms = cuda_time(lambda: b32.vmult(xg[torch.float32]), 20)
+    del b32
+    for label, make in cases:
+        ref = make(torch.float64, "cpu").vmult(x64)
+        line = []
+        for dt, bnd in ((torch.float64, BOUND_F64), (torch.float32, 1e-5)):
+            asm = make(dt, "cuda")
+            y = asm.vmult(xg[dt])
+            same = torch.equal(y, asm.vmult(xg[dt]))
+            err = rel_err(y.cpu(), ref)
+            ms = cuda_time(lambda: asm.vmult(xg[dt]), 20)
+            m = asm.m
+            line.append(f"{str(dt)[6:]} {ms:.4f} ms, max rel err {err:.3e} "
+                        f"(bound {bnd:g}), repeat "
+                        f"{'bit-identical' if same else 'DIFFERS'}")
+            if not (err <= bnd and same):
+                raise Failed(f"{label} apply {dt}: {err:.3e}, "
+                             f"bit-identical={same}")
+            del asm, y
+            torch.cuda.empty_cache()
+        print(f"  {label} FDM apply at {shape} ({n} DoFs, windows of {m}^3) "
+              f"against the CPU float64 apply: {'; '.join(line)}; beside: "
+              f"{b_label} float32 {b_ms:.4f} ms")
+
+
+def run_vertex_paths(counts, phases) -> None:
+    """Phases 14 to 16 (those named in ``phases``): vertex-star patches
+    through run_config on Kershaw, the ball and the Cartesian ladder mesh,
+    each after its FDM applies' check; B, C and D are not launched."""
+    import torch
+
+    from dealii_asm_tpu_torch.models.poisson import run_config
+
+    absent_fused = ("fdm_patch", "smoother_step") + LADDER_KERNELS
+    a_both = ("banded_laplace_f32", "banded_laplace_f64")
+    if 14 in phases:
+        print("== phase 14: e2e_kershaw_fdmv (Kershaw, vertex FDM) on the card")
+        check_patch_applies(14)
+        res = run_solve(KERSHAW_FDMV, 1, 44, None, 7_189_057,
+                        KERSHAW_KERNELS, counts, slack=1, record=(),
+                        absent=absent_fused, best_of=3)
+        print(f"  count {res['it']} beside the reference's 49 at this size "
+              "(deal.II; the JAX package takes 49 at 912,673 DoFs and never "
+              "ran this size)")
+        del res
+    if 15 in phases:
+        print("== phase 15: e2e_ball_fdmv (ball, vertex FDM) on the card")
+        check_patch_applies(15)
+        run_solve(BALL_FDMV, 1, 6, None, 1_061_121, BALL_KERNELS, counts,
+                  record=(), absent=absent_fused, best_of=3,
+                  check_vcycle=True)
+    if 16 in phases:
+        print("== phase 16: ladder fdmv (Cartesian vertex FDM) on the card; "
+              "derived config: input_0027.json with \"mg type\": \"ph\" (the "
+              "hp original raises in both packages)")
+        with open(LADDER_FDMV_R0) as f:
+            params = json.load(f)
+        try:
+            run_config(params, log=lambda *a: None, device="cuda")
+        except ValueError as e:
+            print(f"  input_0003.json as written (hp, r=0) raises "
+                  f"{type(e).__name__}: {e}")
+        else:
+            raise Failed("input_0003.json (hp fdmv, r=0) did not raise")
+        torch.cuda.empty_cache()
+        check_patch_applies(16)
+        run_solve(LADDER_FDMV, 3, 11, None, 16_974_593, a_both, counts,
+                  record=(), absent=absent_fused, best_of=1,
+                  precon={"mg type": "ph"})
 
 
 def main(argv=None) -> int:
@@ -1180,7 +1341,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-13) to run after "
+                    help="comma-separated solve phases (9-16) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -1252,7 +1413,7 @@ def main(argv=None) -> int:
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
             run_ladder(counts)
-            run_new_paths(counts, range(9, 14))
+            run_new_paths(counts, range(9, 17))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -105,20 +105,22 @@ def general_laplace_from_jax(op, dtype=torch.float64,
         geometry=(coeff6_from_jax(op), np.asarray(op._jxw_np, np.float64)))
 
 
+def _collection_from_jax(c) -> FDMCollection:
+    return FDMCollection([np.asarray(V, np.float64) for V in c.eigvecs],
+                         [np.asarray(l, np.float64) for l in c.eigvals],
+                         np.asarray(c.ids))
+
+
 def general_asm_from_jax(asm, dtype=torch.float64,
                          device=DEFAULT_DEVICE) -> GeneralASMPreconditioner:
     """Port FDM Schwarz from a JAX ``GeneralASMPreconditioner`` (element
-    patches): its deduplicated FDM ``collection``."""
-    if asm.patch_type != "element":
-        raise ValueError("the JAX preconditioner has no element tables")
-    c = asm.collection
-    coll = FDMCollection([np.asarray(V, np.float64) for V in c.eigvecs],
-                         [np.asarray(l, np.float64) for l in c.eigvals],
-                         np.asarray(c.ids))
+    patches of any overlap or vertex patches): its deduplicated FDM
+    ``collection`` and its RAS mask."""
     return GeneralASMPreconditioner(
         general_dofs_from_jax(asm.dofs), n_overlap=asm.n_overlap,
         weighting_type=asm.weighting_type, dtype=dtype, device=device,
-        collection=coll)
+        collection=_collection_from_jax(asm.collection),
+        patch_type=asm.patch_type, ras_mask=_optional(asm.ras_mask))
 
 
 def general_transfer_from_jax(tr, dtype=torch.float64, device=DEFAULT_DEVICE,
@@ -129,15 +131,16 @@ def general_transfer_from_jax(tr, dtype=torch.float64, device=DEFAULT_DEVICE,
         dtype=dtype, device=device, T1=np.asarray(tr.T1, np.float64))
 
 
-def ras_axis_masks(ras_mask, n_cells: tuple) -> list:
-    """Per-direction (C_d, m) masks (x first) whose tensor product is the
-    (C, m³) RAS mask ``ras_mask`` of a JAX ``ASMPreconditioner`` (cells and
-    local nodes x fastest); ValueError if it is not such a product."""
-    cx, cy, cz = n_cells
+def ras_axis_masks(ras_mask, windows: tuple) -> list:
+    """Per-direction (W_d, m) masks (x first) whose tensor product is the
+    (P, m³) RAS mask ``ras_mask`` of a JAX ``ASMPreconditioner`` over
+    ``windows`` = (W_x, W_y, W_z) patches per axis (patches and local nodes
+    x fastest); ValueError if it is not such a product."""
+    wx, wy, wz = windows
     mask = np.asarray(ras_mask, np.float64)
     m = round(mask.shape[1] ** (1.0 / 3.0))
-    g = mask.reshape(cz, cy, cx, m, m, m)
-    # the (cell, slot) axes of x, y and z in g; the rest reduce away
+    g = mask.reshape(wz, wy, wx, m, m, m)
+    # the (window, slot) axes of x, y and z in g; the rest reduce away
     mx, my, mz = (g.max(axis=tuple(a for a in range(6) if a not in keep))
                   for keep in ((2, 5), (1, 4), (0, 3)))
     prod = (mz[:, None, None, :, None, None] * my[None, :, None, None, :, None]
@@ -148,32 +151,27 @@ def ras_axis_masks(ras_mask, n_cells: tuple) -> list:
 
 
 def asm_from_jax(asm, dtype=torch.float64, device=DEFAULT_DEVICE):
-    """Port FDM Schwarz from a JAX ``ASMPreconditioner``: its per-coordinate
-    eigen-tables ``percoord`` at any overlap (Cartesian; its ``global_fdm``
-    is built from them) with its RAS mask factored per axis, or its
-    per-cell ``collection`` (deformed)."""
-    if asm.patch_type != "element":
-        raise ValueError("the JAX preconditioner has no element tables")
+    """Port FDM Schwarz from a JAX ``ASMPreconditioner`` (element patches
+    of any overlap or vertex patches): on a Cartesian mesh its
+    per-coordinate eigen-tables ``percoord`` (its ``global_fdm`` is built
+    from them) with its RAS mask factored per axis; on a deformed mesh its
+    per-patch ``collection`` and RAS mask."""
     dofs = dofs_from_jax(asm.dofs)
+    kw = dict(n_overlap=asm.n_overlap, weighting_type=asm.weighting_type,
+              dtype=dtype, device=device, patch_type=asm.patch_type)
     if dofs.mesh.transform is not None:
-        c = asm.collection
-        coll = FDMCollection([np.asarray(V, np.float64) for V in c.eigvecs],
-                             [np.asarray(l, np.float64) for l in c.eigvals],
-                             np.asarray(c.ids))
-        return CellASMPreconditioner(dofs, n_overlap=asm.n_overlap,
-                                     weighting_type=asm.weighting_type,
-                                     dtype=dtype, device=device,
-                                     collection=coll)
+        return CellASMPreconditioner(
+            dofs, collection=_collection_from_jax(asm.collection),
+            ras_mask=_optional(asm.ras_mask), **kw)
     if asm.percoord is None:
         raise ValueError("the JAX preconditioner has no per-coordinate "
-                         "element tables")
+                         "tables")
     percoord = [(np.asarray(V, np.float64), np.asarray(lam, np.float64))
                 for V, lam in asm.percoord]
+    windows = tuple(V.shape[0] for V, _ in percoord)
     ras = (None if asm.ras_mask is None
-           else ras_axis_masks(asm.ras_mask, dofs.mesh.n_cells))
-    return ASMPreconditioner(dofs, n_overlap=asm.n_overlap,
-                             weighting_type=asm.weighting_type, dtype=dtype,
-                             device=device, percoord=percoord, ras_masks=ras)
+           else ras_axis_masks(asm.ras_mask, windows))
+    return ASMPreconditioner(dofs, percoord=percoord, ras_masks=ras, **kw)
 
 
 def transfer_from_jax(tr, dtype=torch.float64,

@@ -32,6 +32,7 @@ from ..ops.transfer import TwoLevelTransfer, p_sequence
 from ..ops.transfer_general import GeneralTwoLevelTransfer
 from ..precond.adapter import PrecisionAdapter
 from ..precond.factory import create_system_preconditioner
+from ..precond.fdm import NoVertexPatches
 from ..precond.multigrid import Multigrid
 from ..solvers.krylov import solve as krylov_solve
 from ..utils.config import get_child, get_param
@@ -219,7 +220,15 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
 
     def make_smoother(level: int, p: dict):
         log(f"- Setting up smoother on level {level}\n")
-        return create_system_preconditioner(ops[level], p, log)
+        try:
+            return create_system_preconditioner(ops[level], p, log)
+        except NoVertexPatches as e:
+            # the hp layout's p-levels on a 1-cell mesh: the JAX package
+            # raises a ValueError there too (``asm.py:438``)
+            r, d = levels[level]
+            raise NoVertexPatches(
+                f"level (refinement {r}, degree {d}) has no interior "
+                f"vertex ({e})") from e
 
     log("- Setting up coarse-grid solver on level 0\n")
     coarse = create_system_preconditioner(

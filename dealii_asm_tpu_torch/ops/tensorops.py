@@ -51,15 +51,26 @@ def global_laplace_1d_factors(mesh, degree: int, n_q_1d: int | None = None):
 
 
 def fdm_direction_transform(eigvecs_c: np.ndarray, n_nodes: int, degree: int,
-                            n_overlap: int, periodic: bool) -> np.ndarray:
-    """G_d (W·m × N) of element windows: window selection fused with the
-    eigen-transform, G[(w,k), n] = Σ_s V_w[s,k]·[n == wrap(w·p − (o−1) + s)].
-    Out-of-range slots (ghosts beyond a boundary) select nothing."""
+                            n_overlap: int, periodic: bool,
+                            patch: str = "element") -> np.ndarray:
+    """G_d (W·m × N): window selection fused with the eigen-transform,
+    G[(w,k), n] = Σ_s V_w[s,k]·[n == wrap(start(w) + s)].  Element windows
+    start at w·p − (o−1); vertex windows (m = 2p − 1) at w·p + 1, the star
+    of interior vertex w + 1 (periodic: every vertex, w·p − (p − 1))
+    (``dealii_asm_tpu/ops/tensorops.py:87-124``).  Out-of-range slots
+    (ghosts beyond a boundary) select nothing."""
     C, m, _ = eigvecs_c.shape
+    p = degree
+    if patch == "element":
+        first = -(n_overlap - 1)
+    elif patch == "vertex":
+        first = -(p - 1) if periodic else 1
+    else:
+        raise ValueError(f"patch type {patch!r}")
     G = np.zeros((C * m, n_nodes))
     for c in range(C):
         for s in range(m):
-            n = c * degree - (n_overlap - 1) + s
+            n = c * p + first + s
             if periodic:
                 n %= n_nodes
             elif n < 0 or n >= n_nodes:

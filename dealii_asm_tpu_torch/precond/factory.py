@@ -1,13 +1,14 @@
 """JSON-driven preconditioner factory (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, Diagonal,
-FDM (element-centric; per-coordinate tables on Cartesian meshes at overlap
-1..p with any weighting, RAS included; per-cell tables on deformed and
-unstructured ones at overlap 1), AMG (the dense direct coarse solve),
+FDM (element patches of overlap 1..p or vertex-star patches, any weighting,
+RAS included; per-coordinate tables on Cartesian meshes, per-patch tables
+on deformed and unstructured ones), AMG (the dense direct coarse solve),
 CoarseCG (diagonal-preconditioned CG to a reduction), Relaxation and
 Chebyshev, with the reference's defaults.  On CUDA, every Relaxation or
-Chebyshev level around an overlap-1 Cartesian FDM preconditioner with a
-multiplicity weighting gets the fused smoother step (kernel C), and, when
+Chebyshev level around an element-patch overlap-1 Cartesian FDM
+preconditioner with a multiplicity weighting gets the fused smoother step
+(kernel C), and, when
 its degree is named in ``DEALII_ASM_TPU_CHAIN_DEGREES`` (none by default, as
 in the JAX package), the fused sweep (kernel D); there is no size gate and
 no fallback.  Other types and options raise NotImplementedError naming
@@ -59,8 +60,9 @@ def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
     (``factory.py:51-134``, without the TPU's size gate).  A deformed level
     has no banded tables and no kernel B tables, so it keeps the unfused
     smoother, as does an unstructured level, as in the JAX package; so does
-    an overlap > 1 or RAS level, whose windows kernels B, C and D do not
-    tile (the JAX kernels refuse them, ``smoother_step.py:1085-1089``)."""
+    an overlap > 1, RAS or vertex-patch level, whose windows kernels B, C
+    and D do not tile (the JAX kernels refuse them,
+    ``smoother_step.py:1085-1089``, ``fdm_slab.py:151-154``)."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
             or not inner.fused or not isinstance(op.tables, BandedTables)):
         return
@@ -175,11 +177,11 @@ def _create_fdm(op, params: dict, log):
     # nodes (``factory.py:261``): a degree-1 level clamps 2 to 1
     n_overlap = min(int(get_param(params, "n overlap", 1)), op.degree)
     weighting = get_param(params, "weighting type", "symm")
-    if not get_param(params, "element centric", True):
-        raise NotImplementedError(
-            "vertex patches are not ported yet (ROADMAP item 10b)")
+    patch_type = ("element" if get_param(params, "element centric", True)
+                  else "vertex")
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
+    log(f"    - patch type:             {patch_type}")
     log(f"    - weighting type:         {weighting}\n")
     # dispatch on the DoF handler first (``factory.py:283-291``): the
     # unstructured mesh has no ``transform``
@@ -190,4 +192,4 @@ def _create_fdm(op, params: dict, log):
     else:
         cls = CellASMPreconditioner
     return cls(op.dofs, n_overlap=n_overlap, weighting_type=weighting,
-               dtype=op.dtype, device=op.device)
+               dtype=op.dtype, device=op.device, patch_type=patch_type)

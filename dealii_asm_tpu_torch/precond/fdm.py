@@ -3,14 +3,18 @@
 NumPy, carried over from ``dealii_asm_tpu/precond/fdm.py`` (whose package
 ``__init__`` imports jax): the element-centric 1D patch mass/stiffness
 assembly (``fdm_1d_matrices`` :56, ``fdm_1d_matrices_batched`` :124), the
-batched generalized eigensolver, and the deduplicated collection
-(``build_fdm_collection`` :240).
+vertex-star one (``vertex_patch_1d_matrices`` :202,
+``vertex_patch_1d_matrices_batched`` :184), the batched generalized
+eigensolver, and the deduplicated collection (``build_fdm_collection``
+:240).
 
 Semantics of the 1D patch matrices (direction d, extents [h_l, h_c, h_r]):
 assemble the 3-cell 1D FE system scaled per cell (M by h, K by 1/h) and
 restrict it to the window of m = p-1+2·overlap nodes centred on the middle
 cell; at a missing neighbour (h = 0) ghost slots and the Dirichlet boundary
-node are decoupled (zero row/column, unit diagonal).  The patch inverse is
+node are decoupled (zero row/column, unit diagonal).  A vertex patch
+along d is the 2p − 1 interior nodes of the two cells [h_0, h_1] around the
+vertex, both ends Dirichlet.  The patch inverse is
 P⁻¹ = (⊗_d V_d) diag(1/Σ_d λ_d) (⊗_d V_d)ᵀ with K V = M V Λ, Vᵀ M V = I.
 """
 
@@ -140,6 +144,35 @@ def fdm_1d_matrices_batched(degree: int, n_overlap: int, extents: np.ndarray,
     return Mw, Kw
 
 
+def vertex_patch_1d_matrices_batched(degree: int, extents: np.ndarray,
+                                     n_q_1d: int | None = None):
+    """1D vertex-patch (M, K), each (U, 2p − 1, 2p − 1), for extents (U, 2)
+    [h_0, h_1]: the 2-cell assembly without its two end nodes (block
+    [0:p, 0:p] from M_ref[1:, 1:]·h_0, block [p−1:, p−1:] from
+    M_ref[:p, :p]·h_1; ``tensor_product_matrix_creator.h:29-58`` of the
+    reference)."""
+    p = degree
+    M_ref, K_ref = reference_mass_stiffness_1d(degree, n_q_1d)
+    extents = np.asarray(extents, np.float64)
+    h0 = extents[:, 0, None, None]
+    h1 = extents[:, 1, None, None]
+    m = 2 * p - 1
+    M = np.zeros((extents.shape[0], m, m))
+    K = np.zeros_like(M)
+    M[:, :p, :p] += M_ref[None, 1:, 1:] * h0
+    K[:, :p, :p] += K_ref[None, 1:, 1:] / h0
+    M[:, p - 1:, p - 1:] += M_ref[None, :p, :p] * h1
+    K[:, p - 1:, p - 1:] += K_ref[None, :p, :p] / h1
+    return M, K
+
+
+def vertex_patch_1d_matrices(degree: int, extents, n_q_1d: int | None = None):
+    """One vertex patch's 1D (M, K) for extents (h_0, h_1)."""
+    M, K = vertex_patch_1d_matrices_batched(degree, np.asarray([extents]),
+                                            n_q_1d)
+    return M[0], K[0]
+
+
 @dataclass
 class FDMCollection:
     """Deduplicated per-direction eigendecompositions: eigvecs[d] (U_d, m, m),
@@ -209,3 +242,37 @@ def percoord_eigendecomposition(mesh, degree: int, n_overlap: int = 1):
         inv = np.asarray(inv).reshape(-1)
         out.append((V[inv], lam[inv]))
     return out
+
+
+class NoVertexPatches(ValueError):
+    """A mesh without an interior vertex has no vertex-star patch (the JAX
+    package raises a ValueError there too, ``asm.py:438``)."""
+
+
+def check_has_interior_vertex(mesh, degree: int) -> None:
+    """NoVertexPatches unless every axis of the structured ``mesh`` has two
+    cells or more."""
+    if min(mesh.n_cells) < 2:
+        raise NoVertexPatches(
+            f"{tuple(mesh.n_cells)} cells at degree {degree}: no interior "
+            "vertex, so no vertex patch")
+
+
+def vertex_percoord_eigendecomposition(mesh, degree: int):
+    """Per-coordinate tables [(V_d (W_d, m, m), λ_d (W_d, m))] of vertex
+    patches on a uniform Cartesian mesh, m = 2p − 1, one window per
+    interior vertex v = 1 .. n_d − 1 of direction d.  The key of every
+    window is [h_d, h_d] (the anchor's own and upper extents,
+    ``asm.py:231``), so each direction eigendecomposes one pair, as the
+    JAX package's deduplication does.  A mesh with one cell along an axis
+    has no interior vertex: ``NoVertexPatches``."""
+    check_has_interior_vertex(mesh, degree)
+    out = []
+    for d in range(mesh.dim):
+        h = np.round(float(mesh.h[d]), 12)
+        M, K = vertex_patch_1d_matrices_batched(degree, np.array([[h, h]]))
+        lam, V = batched_generalized_eigh(K, M)
+        W = mesh.n_cells[d] - 1
+        out.append((np.repeat(V, W, axis=0), np.repeat(lam, W, axis=0)))
+    return out
+

@@ -37,8 +37,10 @@ hp-multigrid) and prints one JSON record to standard output, with the keys
 of the JAX script's records (the outer solve is float64) plus the setup
 seconds, the device, and on the card the peak device memory and the kernel
 launches of the rung.  Default plan: fdm1:0-7 diag:7 fdm2:7 fdmv:7.  A rung
-whose options are not ported, or that runs out of device memory, records
-the error and the ladder goes on; any other error stops it.
+whose options are not ported, that has a level without vertex patches (the
+fdmv column: the hp layout puts p-levels on the 1-cell mesh, where the JAX
+package raises too), or that runs out of device memory, records the error
+and the ladder goes on; any other error stops it.
 
 All print the card's name and power limit first; all but ``ladder
 --device cpu`` need a GPU.
@@ -64,6 +66,7 @@ from .kernels import merged_laplace as merged
 from .models import poisson
 from .ops import laplace, laplace_general
 from .precond.asm import element_fdm_collection
+from .precond.fdm import NoVertexPatches
 from .solvers import chebyshev
 from .utils.config import get_child
 
@@ -296,7 +299,8 @@ def ladder(specs, best_of: int = 3, device: str = "cuda") -> list:
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
         try:
             res = poisson.run_config(params, log=_quiet, device=device)
-        except (NotImplementedError, torch.cuda.OutOfMemoryError) as e:
+        except (NotImplementedError, NoVertexPatches,
+                torch.cuda.OutOfMemoryError) as e:
             rec["error"] = f"{type(e).__name__}: {e}"[:500]
         else:
             it, t = res["it"], res["time"]

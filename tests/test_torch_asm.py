@@ -102,17 +102,24 @@ def test_interop_drives_port_with_jax_tables():
 
 def test_unported_options_raise():
     """RAS and overlap 2 run on Cartesian meshes
-    (``test_torch_asm_overlap.py``); on a deformed mesh, whose per-cell form
-    is overlap 1 only, they still raise naming ROADMAP item 10."""
+    (``test_torch_asm_overlap.py``) and, per cell, on deformed ones: there
+    they equal the JAX ASMPreconditioner's per-cell forms (rel 1e-12); an
+    unknown patch type still raises."""
+    from dealii_asm_tpu.mesh.transforms import kershaw_transform as jk
     from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
     from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
 
+    jdofs = JaxDofHandler(JaxMesh(3, (2, 2, 2), transform=jk(0.3, 0.3)), 3)
     dofs = DofHandler(StructuredMesh(3, (2, 2, 2),
                                      transform=kershaw_transform(0.3, 0.3)), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        CellASMPreconditioner(dofs, weighting_type="ras", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        CellASMPreconditioner(dofs, n_overlap=2, device="cpu")
+    x = np.random.default_rng(7).standard_normal(dofs.n_dofs)
+    for kw in ({"weighting_type": "ras"}, {"n_overlap": 2}):
+        ref = np.asarray(JaxASM(jdofs, dtype=jnp.float64, **kw).vmult(
+            jnp.asarray(x)))
+        got = CellASMPreconditioner(dofs, device="cpu", **kw)
+        assert _rel(got.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
+    with pytest.raises(ValueError, match="patch type"):
+        CellASMPreconditioner(dofs, patch_type="edge", device="cpu")
 
 
 # -- deformed meshes: per-cell FDM tables (CellASMPreconditioner) ------------
@@ -221,8 +228,9 @@ def test_general_fdm_matches_jax_on_ball(refinements, p, wt):
 
 def test_general_fdm_interop_float32_and_options():
     """general_asm_from_jax carries the JAX collection; float32 agrees to
-    float32 rounding (rel 1e-5); RAS, overlap 2 and vertex patches raise
-    naming ROADMAP item 10."""
+    float32 rounding (rel 1e-5); RAS, overlap 2 and vertex patches (the
+    factory's "element centric": false) agree with the JAX
+    GeneralASMPreconditioner to rel 1e-12."""
     from dealii_asm_tpu.precond.asm_general import \
         GeneralASMPreconditioner as JaxGeneralASM
     from dealii_asm_tpu_torch.interop import general_asm_from_jax
@@ -244,8 +252,10 @@ def test_general_fdm_interop_float32_and_options():
     assert y32.dtype == torch.float32
     assert _rel(y32.numpy(), ref) < 1e-5
     for kw in ({"weighting_type": "ras"}, {"n_overlap": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            GeneralASMPreconditioner(dofs, device="cpu", **kw)
+        jref = np.asarray(JaxGeneralASM(jdofs, dtype=jnp.float64, **kw).vmult(
+            jnp.asarray(x)))
+        got = GeneralASMPreconditioner(dofs, device="cpu", **kw)
+        assert _rel(got.vmult(torch.as_tensor(x)).numpy(), jref) < 1e-12
 
     class Op:  # what the factory reads of a level operator
         pass
@@ -254,6 +264,10 @@ def test_general_fdm_interop_float32_and_options():
     op.dofs, op.degree, op.dtype, op.device = dofs, 3, torch.float64, "cpu"
     made = create_system_preconditioner(op, {"type": "FDM"})
     assert isinstance(made, GeneralASMPreconditioner)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        create_system_preconditioner(op, {"type": "FDM",
-                                          "element centric": False})
+    vertex = create_system_preconditioner(op, {"type": "FDM",
+                                               "element centric": False})
+    assert vertex.patch_type == "vertex"
+    jref = np.asarray(JaxGeneralASM(jdofs, weighting_type="symm",
+                                    patch_type="vertex",
+                                    dtype=jnp.float64).vmult(jnp.asarray(x)))
+    assert _rel(vertex.vmult(torch.as_tensor(x)).numpy(), jref) < 1e-12

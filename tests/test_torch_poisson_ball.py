@@ -27,6 +27,15 @@ with open(os.path.join(ROOT, "experiments", "e2e_ball_q4.json")) as _f:
     BALL = json.load(_f)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test process (see tests/test_torch_gmres.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quiet(*_):
     pass
 
