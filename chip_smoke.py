@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks at 2^3 cells only
     python3 chip_smoke.py --only 9,13   # build + the named solve phases only
     python3 chip_smoke.py --only 14,15,16   # build + the vertex-patch phases
+    python3 chip_smoke.py --only 17,18,19,20   # build + the named inputs
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -112,16 +113,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    p-levels on the 1-cell mesh, which has no interior vertex: it raises a
    ValueError in both packages, and input_0003.json as written must raise
    it on the card): A launched; before it, the Cartesian vertex FDM apply
-   at 64^3 cells Q4.
+   at 64^3 cells Q4;
+17. inputs/jw_01..03 at their own sizes (symmetric hypercube, gaussian-jw
+   rhs with its Dirichlet lift, ph-multigrid, Chebyshev-2 around FDM
+   overlap 1 "symm"; Q2, Q4, Q7: 35,937, 274,625 and 1,442,897 DoFs): A
+   (both precisions) and B launched; before them, A, B (without and with
+   xold) and C against their plain versions at jw_03's shape (16^3 cells
+   Q7, h = 0.125), float32 and float64;
+18. inputs/mp_02 at its own size (Kershaw-mp, 36^3 cells Q7, 16,194,277
+   DoFs, GMRES(30), p-multigrid around Chebyshev-1 and per-cell overlap-2
+   RAS FDM, the dense coarse solve of 50,653 DoFs assembled and factorised
+   on the card): E launched in both precisions, B, C and D not;
+19. inputs/mp_00, 01, 03, 04 and 05 at 1 refinement (2,048,383 DoFs;
+   mp_04 and mp_05 with the linear-geometry outer operator, plain torch):
+   E launched (float32; float64 also where the outer operator is merged),
+   B, C and D not;
+20. inputs/dummy.json (2D Q3, 625 DoFs, CG around Diagonal, plain torch):
+   24 iterations, no kernel launched.
 Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
 refinements, input_0026 10 at 3, ball 0060 and 0000 5 and 5 at 1,
 default.json 101 at 0, e2e_kershaw_fdmv 44 at 1, e2e_ball_fdmv 6 at 1,
-the ph ladder fdmv 11 at 3) and the card to the CPU path (Kershaw within
-one iteration).  B, C and D are launched 0 times in phases 10, 11 and 14 to
-16.  Each FDM apply of phases 14 to 16 is held in float64 on the card to
-1e-12 of the CPU's float64 apply and in float32 to 1e-5, repeats
+the ph ladder fdmv 11 at 3; jw_01..03 8, 8, 8 at 2, 1, 1 refinements on
+the homogeneous system; mp_00..05 6, 8, 8, 14, 6, 15 at 2 subdivisions and
+0 refinements; dummy.json 24) and the card to the CPU path (Kershaw within
+one iteration).  Phases 17 to 19 accept any converged count at full size
+(the JAX package has none there).  B, C and D are launched 0 times in
+phases 10, 11, 14 to 16 and 18 to 20.  Each FDM apply of phases 14 to 16
+is held in float64 on the card to 1e-12 of the CPU's float64 apply and in
+float32 to 1e-5, repeats
 bit-identical, and timed with CUDA events beside the element overlap-1
 apply on the same mesh (kernel B on the Cartesian one).
 The launch counts of each solve are set to 0 just before it and read just
@@ -165,6 +186,18 @@ LADDER_FDMV = os.path.join(HERE, "experiments", "sweep_large_scaling",
                            "input_0027.json")
 LADDER_FDMV_R0 = os.path.join(HERE, "experiments", "sweep_large_scaling",
                               "input_0003.json")
+INPUTS = os.path.join(HERE, "inputs")
+# the named study inputs: (own-size DoFs, small refinements, the JAX
+# package's count there; jw on the homogeneous system, pinned from one JAX
+# run each with its assemble_rhs zeroing the constrained rows, see
+# tests/test_torch_rhs.py)
+JW = {"jw_01": (35_937, 2, 8), "jw_02": (274_625, 1, 8),
+      "jw_03": (1_442_897, 1, 8)}
+# Kershaw-mp: the JAX package's counts at 2 subdivisions and 0 refinements
+# (3,375 DoFs; tests/test_torch_inputs.py)
+MP_SMALL = {"mp_00": 6, "mp_01": 8, "mp_02": 8, "mp_03": 14, "mp_04": 6,
+            "mp_05": 15}
+MP_COMPACT = ("mp_04", "mp_05")  # "operator mapping type": "linear geometry"
 CHAIN_GATE = "DEALII_ASM_TPU_CHAIN_DEGREES"
 SEED = 20261016
 
@@ -659,12 +692,14 @@ def check_merged(cells_list, degrees_small, level_degrees, results, rows):
             torch.cuda.empty_cache()
 
 
-def check_tiles(degrees, results):
+def check_tiles(degrees, results, cases=None):
     """Phase 3: kernels A (both precisions), B (without and with xold) and
     C against their plain versions on meshes whose cell counts leave ragged
     tiles and a 1-cell axis, at every degree, B and C also in float64 and
     under the weightings none and pre, and on the ladder's stretch-50 mesh
-    at 16^3 cells Q4, whose per-coordinate tables differ along z."""
+    at 16^3 cells Q4, whose per-coordinate tables differ along z.  Phase
+    17 passes its own ``cases`` ((cells, lengths, p, weighting): jw_03's
+    symmetric hypercube, h = 0.125 at Q7)."""
     import numpy as np
     import torch
 
@@ -682,11 +717,12 @@ def check_tiles(degrees, results):
     rng = np.random.default_rng(SEED + 4)
     dev = "cuda"
     unit = (1.0, 1.0, 1.0)
-    cases = ([((5, 7, 13), unit, p, "symm") for p in degrees]
-             + [((1, 9, 6), unit, p, "post") for p in degrees]
-             + [((5, 7, 13), unit, p, wt) for wt in ("none", "pre")
-                for p in (2, 4)]
-             + [((16, 16, 16), (1.0, 1.0, 50.0), 4, "symm")])
+    if cases is None:
+        cases = ([((5, 7, 13), unit, p, "symm") for p in degrees]
+                 + [((1, 9, 6), unit, p, "post") for p in degrees]
+                 + [((5, 7, 13), unit, p, wt) for wt in ("none", "pre")
+                    for p in (2, 4)]
+                 + [((16, 16, 16), (1.0, 1.0, 50.0), 4, "symm")])
     for cells, lengths, p, wt in cases:
         dofs = DofHandler(StructuredMesh(3, cells, lengths=lengths), p)
         n = dofs.n_dofs
@@ -694,7 +730,8 @@ def check_tiles(degrees, results):
         b64 = torch.as_tensor(rng.standard_normal(n), device=dev)
         x, b = x64.float(), b64.float()
         tag = (f"{'x'.join(map(str, cells))} cells Q{p} {wt}"
-               + (", stretch 50" if lengths[2] != 1.0 else "") + f", {n} DoFs")
+               + (f", lengths {lengths}" if lengths != unit else "")
+               + f", {n} DoFs")
         f32 = [LaplaceOperator(dofs, dtype=torch.float32, device=dev).tables,
                ASMPreconditioner(dofs, weighting_type=wt, dtype=torch.float32,
                                  device=dev).tables]
@@ -727,7 +764,7 @@ def check_tiles(degrees, results):
                     and same):
                 raise Failed(f"{what} {tag}: {err:.3e} / {e_k:.3e}, "
                              f"bit-identical={same}")
-        if cells == (5, 7, 13):
+        if cells == (5, 7, 13) or lengths == (2.0, 2.0, 2.0):
             check_f64({
                 "B": (lambda: fdm_patch(x64, f64[1], om),
                       lambda: fdm_patch_plain(x64, f64[1], om)),
@@ -735,7 +772,7 @@ def check_tiles(degrees, results):
                            lambda: fdm_patch_plain(x64, f64[1], om, b64)),
                 "C": (lambda: smoother_step(x64, b64, *f64, om),
                       lambda: smoother_step_plain(x64, b64, *f64, om))}, tag)
-        if wt in ("symm", "post") and lengths == unit:
+        if wt in ("symm", "post") and lengths[2] != 50.0:
             # kernel A's ragged tiles and chunks
             for tabs, u, rhs, name in ((f32[0], x, b, "banded_laplace_f32"),
                                        (f64[0], x64, b64,
@@ -981,7 +1018,8 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
               it_full: int | None, n_dofs: int, kernels, counts,
               slack: int = 0, check_vcycle: bool = False, record=None,
               absent=(), best_of: int | None = None,
-              refinements: int | None = None, precon: dict | None = None):
+              refinements: int | None = None, precon: dict | None = None,
+              small_mesh: dict | None = None):
     """Phase 4 to 13: one config through run_config on the card, first (with
     ``n_small`` given) at ``n_small`` refinements against the plain CPU
     path, then at full size (the config's "n refinements", or
@@ -989,8 +1027,9 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     just after.  Every kernel of ``kernels`` must be launched and none of
     ``absent``; ``counts`` takes the counts of ``record`` (default
     ``kernels``).  ``it_full`` None accepts any converged count; ``best_of``
-    overrides the config's, and ``precon`` updates its "preconditioner"
-    section (a derived config).
+    overrides the config's, ``precon`` updates its "preconditioner"
+    section (a derived config) and ``small_mesh`` the small case's "mesh"
+    section.
 
     The small case holds the CPU path to ``it_small`` (the JAX package's
     count), the card's solution to rel-l2 1e-6 of the CPU's, the first 20
@@ -1020,7 +1059,7 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
         params["preconditioner"].update(precon)
         name += f" derived with {json.dumps(precon)}"
     if n_small is not None:
-        check_small(params, name, n_small, it_small, slack)
+        check_small(params, name, n_small, it_small, slack, small_mesh)
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1041,7 +1080,8 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
           f"run_config wall {wall:.3f} s, "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    thr = float(params["solver"]["rel tolerance"]) * res["residuals"][0]
+    thr = (float(params["solver"].get("rel tolerance", 1e-2))
+           * res["residuals"][0])
     print(f"  last residuals / threshold: "
           f"{[round(r / thr, 4) for r in res['residuals'][-2:]]}")
     print(f"  launch counts on this path: {json.dumps(got)}")
@@ -1071,13 +1111,16 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
 
 
 def check_small(params: dict, name: str, n_small: int, it_small: int,
-                slack: int) -> None:
-    """The config at ``n_small`` refinements on the card against the plain
-    CPU path (see ``run_solve``)."""
+                slack: int, small_mesh: dict | None = None) -> None:
+    """The config at ``n_small`` refinements (its "mesh" section updated by
+    ``small_mesh``) on the card against the plain CPU path (see
+    ``run_solve``)."""
     from dealii_asm_tpu_torch.models.poisson import run_config
 
     small = copy.deepcopy(params)
     small["n refinements"] = n_small
+    if small_mesh:
+        small["mesh"].update(small_mesh)
     small["print timing"] = False
     small["solver"]["best of"] = 1
     quiet = lambda *a: None
@@ -1100,7 +1143,7 @@ def check_small(params: dict, name: str, n_small: int, it_small: int,
         h_bound = 1e-6
     hg, hc = r_gpu["residuals"][:n_hist], r_cpu["residuals"][:n_hist]
     hist = max(abs(a - b) / (hc[0] if gmres else b) for a, b in zip(hg, hc))
-    thr = float(small["solver"]["rel tolerance"]) * hc[0]
+    thr = float(small["solver"].get("rel tolerance", 1e-2)) * hc[0]
     last = lambda h: [round(r / thr, 4) for r in h[-2:]]
     print(f"  {name} at {n_small} refinements ({r_gpu['n_dofs']} DoFs): card "
           f"{r_gpu['it']} its, cpu {r_cpu['it']} its (expected {it_small}), "
@@ -1205,6 +1248,7 @@ def run_new_paths(counts, phases) -> None:
         run_solve(DEFAULT, 0, 101, None, 912_673, KERSHAW_KERNELS, counts,
                   slack=1, record=(), best_of=3)
     run_vertex_paths(counts, phases)
+    run_input_paths(counts, phases)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1334,6 +1378,130 @@ def run_vertex_paths(counts, phases) -> None:
                   precon={"mg type": "ph"})
 
 
+def coarse_solver_time() -> None:
+    """Phase 18: the dense coarse solve of mp_02 (Kershaw-mp 36^3 cells Q1,
+    50,653 DoFs, float32 inverse) built on the card: seconds (host clock
+    around synchronize) and peak device memory of the assembly, the
+    Cholesky factor and the blocked inverse."""
+    import torch
+
+    from dealii_asm_tpu_torch.models.poisson import make_mesh_family
+    from dealii_asm_tpu_torch.precond.multigrid import DirectCoarseSolver
+
+    with open(os.path.join(INPUTS, "mp_02.json")) as f:
+        family = make_mesh_family(json.load(f))
+    dofs = family.dofs_at(family.n_refinements, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = DirectCoarseSolver(dofs, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b = torch.ones(dofs.n_dofs, dtype=torch.float32, device="cuda")
+    ms = cuda_time(lambda: solver.vmult(b), 5)
+    print(f"  dense coarse solve, {dofs.n_dofs} DoFs: built in {secs:.3f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, apply {ms:.4f} ms (float32 inverse "
+          f"{solver.Ainv.numel() * 4 / 2**30:.2f} GiB)")
+    del solver
+    torch.cuda.empty_cache()
+
+
+def check_compact_apply() -> None:
+    """Phase 19: the linear-geometry outer operator of mp_04 at 1 refinement
+    (18^3 Kershaw-mp cells Q7, plain torch) against kernel E float64 with
+    the same degree-1 mapping on the card (the same operator: rel 1e-12),
+    repeats bit-identical, with CUDA-event ms of both."""
+    import torch
+
+    from dealii_asm_tpu_torch.models.poisson import make_mesh_family
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+
+    with open(os.path.join(INPUTS, "mp_04.json")) as f:
+        family = make_mesh_family(json.load(f))
+    dofs = family.dofs_at(1, 7)
+    x = torch.randn(dofs.n_dofs, generator=torch.Generator().manual_seed(SEED),
+                    dtype=torch.float64).cuda()
+    compact = LaplaceOperator(dofs, device="cuda", mapping_degree=1,
+                              mapping_type="linear geometry")
+    merged = LaplaceOperator(dofs, device="cuda", mapping_degree=1)
+    y = compact.vmult(x)
+    same = torch.equal(y, compact.vmult(x))
+    err = rel_err(y, merged.vmult(x))
+    c_ms, e_ms = in_turns(lambda: merged.vmult(x), lambda: compact.vmult(x),
+                          5)
+    print(f"  linear-geometry outer apply at 18^3 cells Q7 ({dofs.n_dofs} "
+          f"DoFs, float64): {c_ms:.4f} ms against kernel E's {e_ms:.4f} ms; "
+          f"max rel difference {err:.3e} (bound {BOUND_F64:g}); repeat "
+          f"{'bit-identical' if same else 'DIFFERS'}")
+    if not (err <= BOUND_F64 and same):
+        raise Failed(f"linear-geometry apply: {err:.3e}, bit-identical={same}")
+    del compact, merged
+    torch.cuda.empty_cache()
+
+
+def run_input_paths(counts, phases) -> None:
+    """Phases 17 to 20 (those named in ``phases``): the named study inputs
+    of ``inputs/`` through run_config on the card, each after its small
+    check (the CPU path at the JAX package's count, the card at the CPU
+    path's).  17: jw_01..03 at their own sizes (symmetric hypercube,
+    gaussian-jw rhs with its Dirichlet lift, ph-multigrid, Chebyshev-2
+    around FDM overlap 1): A and B launched, after kernels A, B and C are
+    held to their plain versions at jw_03's shape (16^3 cells Q7, h =
+    0.125; C serves degree-1 steps only, so these Chebyshev-2 levels step
+    through A then B).  18: mp_02 at its own size (Kershaw-mp 36^3 cells Q7,
+    16,194,277 DoFs, GMRES, p-multigrid around per-cell overlap-2 RAS, the
+    dense coarse solve at 50,653 DoFs on the card): E launched, B, C and D
+    not.  19: mp_00, 01, 03, 04 and 05 at 1 refinement (2,048,383 DoFs;
+    mp_04 and 05 with the linear-geometry outer operator, plain torch): E
+    launched, B, C and D not; all six mp configs held at 2 subdivisions.
+    20: inputs/dummy.json (2D Q3, CG around Diagonal; plain torch): no
+    kernel launched."""
+    absent_fused = ("fdm_patch", "smoother_step") + LADDER_KERNELS
+    # Chebyshev-2 steps through A then B (C serves degree-1 steps)
+    a_b = ("banded_laplace_f32", "banded_laplace_f64", "fdm_patch")
+    if 17 in phases:
+        print("== phase 17: inputs/jw_01..03 (symmetric hypercube, "
+              "gaussian-jw) on the card")
+        results = {}
+        check_tiles((), results,
+                    cases=[((16, 16, 16), (2.0, 2.0, 2.0), 7, "symm")])
+        for name, (n_dofs, r_small, it_small) in JW.items():
+            run_solve(os.path.join(INPUTS, f"{name}.json"), r_small, it_small,
+                      None, n_dofs, a_b, counts, record=(),
+                      absent=LADDER_KERNELS, best_of=3)
+    mp_small = {"n subdivisions": 2}
+    if 18 in phases:
+        print("== phase 18: inputs/mp_02 (Kershaw-mp Q7, GMRES, per-cell "
+              "overlap-2 RAS, dense coarse solve) at its own size on the card")
+        coarse_solver_time()
+        res = run_solve(os.path.join(INPUTS, "mp_02.json"), 0,
+                        MP_SMALL["mp_02"], None, 16_194_277, KERSHAW_KERNELS,
+                        counts, record=(), absent=absent_fused, best_of=1,
+                        small_mesh=mp_small)
+        del res
+    if 19 in phases:
+        print("== phase 19: inputs/mp_00, 01, 03, 04, 05 at 1 refinement on "
+              "the card")
+        check_compact_apply()
+        with open(os.path.join(INPUTS, "mp_02.json")) as f:
+            check_small(json.load(f), "mp_02.json", 0, MP_SMALL["mp_02"], 0,
+                        mp_small)
+        for name in ("mp_00", "mp_01", "mp_03", "mp_04", "mp_05"):
+            kernels = (("merged_laplace_f32",) if name in MP_COMPACT
+                       else KERSHAW_KERNELS)
+            run_solve(os.path.join(INPUTS, f"{name}.json"), 0, MP_SMALL[name],
+                      None, 2_048_383, kernels, counts, record=(),
+                      absent=absent_fused, best_of=1, refinements=1,
+                      small_mesh=mp_small)
+    if 20 in phases:
+        print("== phase 20: inputs/dummy.json (2D Q3, CG around Diagonal) on "
+              "the card")
+        run_solve(os.path.join(INPUTS, "dummy.json"), 3, 24, 24, 625, (),
+                  counts, record=(), absent=tuple(KERNELS), best_of=3)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -1341,7 +1509,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-16) to run after "
+                    help="comma-separated solve phases (9-20) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -1413,7 +1581,7 @@ def main(argv=None) -> int:
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
             run_ladder(counts)
-            run_new_paths(counts, range(9, 17))
+            run_new_paths(counts, range(9, 21))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -14,6 +14,7 @@ from functools import cached_property
 import numpy as np
 
 from ..mesh.grid import StructuredMesh
+from .lagrange import gauss_lobatto_points
 
 
 @dataclass(frozen=True)
@@ -39,6 +40,25 @@ class DofHandler:
         if not self.mesh.periodic[d]:
             f[0] = f[-1] = 0.0
         return f
+
+    def node_points(self, ids: np.ndarray) -> np.ndarray:
+        """(len(ids), dim) physical coordinates of the flat node ids: the
+        GLL lattice of the owning cell (``origin`` included) through the
+        transform, as the JAX package's ``DofHandler.points``
+        (``dealii_asm_tpu/fem/dofs.py:81-98``) places every node."""
+        p = self.degree
+        gll = gauss_lobatto_points(p + 1)
+        h = self.mesh.h
+        rest = np.asarray(ids, np.int64)
+        coords = np.empty((rest.shape[0], self.mesh.dim))
+        for d in range(self.mesh.dim):
+            rest, k = np.divmod(rest, self.nodes_per_dim[d])
+            cell = np.minimum(k // p, self.mesh.n_cells[d] - 1)
+            coords[:, d] = (self.mesh.origin[d]
+                            + (cell + gll[k - cell * p]) * h[d])
+        if self.mesh.transform is not None:
+            coords = np.asarray(self.mesh.transform(coords))
+        return coords
 
     @cached_property
     def boundary_mask(self) -> np.ndarray:

@@ -169,6 +169,10 @@ class GeneralDofHandler:
         pts[self.cell_dofs.reshape(-1)] = sp.reshape(-1, self.mesh.dim)
         return pts
 
+    def node_points(self, ids: np.ndarray) -> np.ndarray:
+        """(len(ids), dim) support points of the DoFs ``ids``."""
+        return self.points[np.asarray(ids, np.int64)]
+
 
 def _canonical_quad_vec(corners: np.ndarray) -> np.ndarray:
     """Canonical corner order (origin, u-neighbour, v-neighbour, diagonal)

@@ -81,12 +81,11 @@ def lanes_tables(cell_dofs: np.ndarray, boundary_mask: np.ndarray,
                        slots.int(), free, p)
 
 
-def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
-                      shape: torch.Tensor) -> torch.Tensor:
-    """Local cell integrals (∇̂⊗N̂)ᵀ C_c (∇̂⊗N̂) W_c of W (C, m, m, m) as
-    [z, y, x] with ``coeff`` (C, 6, Q) and ``shape`` (4, m, m)."""
+def sumfac_gradients(W: torch.Tensor, shape: torch.Tensor) -> tuple:
+    """Reference-direction derivatives (gx, gy, gz), each (C, q, q, q) as
+    [z, y, x] quadrature points, of the cell values W (C, m, m, m) as
+    [z, y, x]; ``shape`` (4, m, m) = N, Dx, Dy, Dz as [point, node]."""
     N, Dx, Dy, Dz = shape
-    m = N.shape[0]
     a = torch.einsum("czyx,qx->czyq", W, N)
     dx = torch.einsum("czyx,qx->czyq", W, Dx)
     b = torch.einsum("czyq,ry->czrq", a, N)
@@ -95,10 +94,13 @@ def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
     gz = torch.einsum("czrq,sz->csrq", b, Dz)
     gy = torch.einsum("czrq,sz->csrq", c, N)
     gx = torch.einsum("czrq,sz->csrq", e, N)
-    cxx, cyy, czz, cxy, cxz, cyz = coeff.reshape(-1, 6, m, m, m).unbind(1)
-    tx = cxx * gx + cxy * gy + cxz * gz
-    ty = cxy * gx + cyy * gy + cyz * gz
-    tz = cxz * gx + cyz * gy + czz * gz
+    return gx, gy, gz
+
+
+def sumfac_integrate(tx: torch.Tensor, ty: torch.Tensor, tz: torch.Tensor,
+                     shape: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``sumfac_gradients``: Σ_d ∫ t_d ∂_d φ, (C, m, m, m)."""
+    N, Dx, Dy, Dz = shape
     w1 = torch.einsum("csrq,sz->czrq", tz, Dz)
     w2 = torch.einsum("csrq,sz->czrq", ty, N)
     w3 = torch.einsum("csrq,sz->czrq", tx, N)
@@ -107,6 +109,19 @@ def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
     r3 = torch.einsum("czrq,ry->czyq", w3, N)
     return (torch.einsum("czyq,qx->czyx", r12, N)
             + torch.einsum("czyq,qx->czyx", r3, Dx))
+
+
+def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
+                      shape: torch.Tensor) -> torch.Tensor:
+    """Local cell integrals (∇̂⊗N̂)ᵀ C_c (∇̂⊗N̂) W_c of W (C, m, m, m) as
+    [z, y, x] with ``coeff`` (C, 6, Q) and ``shape`` (4, m, m)."""
+    m = shape.shape[1]
+    gx, gy, gz = sumfac_gradients(W, shape)
+    cxx, cyy, czz, cxy, cxz, cyz = coeff.reshape(-1, 6, m, m, m).unbind(1)
+    tx = cxx * gx + cxy * gy + cxz * gz
+    ty = cxy * gx + cyy * gy + cyz * gz
+    tz = cxz * gx + cyz * gy + czz * gz
+    return sumfac_integrate(tx, ty, tz, shape)
 
 
 def lanes_laplace_plain(u: torch.Tensor, t: LanesTables,

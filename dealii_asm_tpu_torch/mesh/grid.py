@@ -6,7 +6,7 @@ optionally deformed by an analytic ``transform`` (Kershaw).  Geometry comes
 from an isoparametric Q_m mapping whose support points are the transformed
 GLL lattice of each cell.  The patch extents of the FDM smoother use the
 analytic transform at the face quadrature points (the JAX package's default,
-``mapping_degree=None``).
+``mapping_degree=None``) or, when asked, the isoparametric mapping.
 """
 
 from __future__ import annotations
@@ -113,30 +113,53 @@ class StructuredMesh:
         B, sp = self.jacobian_factors(mapping_degree, quad_pts_1d)
         return np.einsum("qld,cle->cqed", B, sp, optimize=True)
 
-    def harmonic_cell_extents(self, n_q_1d: int = 2) -> np.ndarray:
+    def harmonic_cell_extents(self, n_q_1d: int = 2,
+                              mapping_degree: int | None = None
+                              ) -> np.ndarray:
         """(C, dim) quadrature-averaged distance between opposite face
-        points, the face points mapped by the analytic transform."""
+        points (``dealii_asm_tpu/mesh/grid.py:145-197``).  The face points
+        go through the analytic transform (``mapping_degree`` None, the
+        JAX package's default) or through the isoparametric Q_m mapping of
+        ``mapping_degree``, the geometry the reference's FEFaceValues
+        sees."""
         C = self.n_cells_total
         if self.transform is None:
             return np.broadcast_to(self.h, (C, self.dim)).copy()
         q, w = gauss_points(n_q_1d)
+
+        def to_physical(unit_pts):
+            if mapping_degree is None:
+                return self.physical_points(unit_pts)
+            gll = gauss_lobatto_points(mapping_degree + 1)
+            sp = self.mapping_support_points(mapping_degree)  # (C, L, dim)
+            vals = [lagrange_values(gll, unit_pts[:, d])
+                    for d in range(self.dim)]
+            N = vals[0]
+            for d in range(1, self.dim):
+                # support lattice x fastest
+                N = (vals[d][:, :, None] * N[:, None, :]).reshape(
+                    N.shape[0], -1)
+            return np.einsum("pl,cld->cpd", N, sp)
+
         out = np.empty((C, self.dim))
         for d in range(self.dim):
             faces = []
             for val in (0.0, 1.0):
                 coords = [q] * self.dim
                 coords[d] = np.array([val])
-                faces.append(self.physical_points(tensor_lattice_nd(coords)))
+                faces.append(to_physical(tensor_lattice_nd(coords)))
             dist = np.linalg.norm(faces[1] - faces[0], axis=2)  # (C, Qf)
             wf = tensor_weights([w if i != d else np.array([1.0])
                                  for i in range(self.dim)])
             out[:, d] = dist @ wf
         return out
 
-    def harmonic_patch_extents(self, n_q_1d: int = 2) -> np.ndarray:
+    def harmonic_patch_extents(self, n_q_1d: int = 2,
+                               mapping_degree: int | None = None
+                               ) -> np.ndarray:
         """(C, dim, 3) extents [lower neighbour, own, upper neighbour]; 0
         where there is no neighbour."""
-        ext = self.harmonic_cell_extents(n_q_1d)
+        ext = self.harmonic_cell_extents(n_q_1d, mapping_degree)
         nbr = self.neighbors()
         out = np.zeros((self.n_cells_total, self.dim, 3))
         out[:, :, 1] = ext

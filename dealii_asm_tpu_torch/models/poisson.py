@@ -1,15 +1,21 @@
 """JSON-config-driven Poisson solve (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
-structured families ``hypercube``, ``anisotropy`` and the deformed
-``kershaw``/``kershaw-mp``, and the unstructured ``hyperball``, on one
-device: mesh → float64 operator → multigrid (h, p, hp or ph levels,
-float32 by default) behind a precision adapter → CG or GMRES with deal.II's
-ReductionControl.  The result dict carries the
-same keys (``it``, ``converged``, ``time``, ``solution`` ...), plus
-``setup_time``, the first solve's ``residuals`` and the ``preconditioner``.
-Options outside the slice raise NotImplementedError naming their ROADMAP
-item.
+structured families ``hypercube``, ``symmetric hypercube``, ``anisotropy``
+(2D and 3D) and the deformed ``kershaw``/``kershaw-mp`` (3D), and the
+unstructured ``hyperball`` (3D), on one device: mesh → float64 operator
+(the "operator mapping type" selects a compact geometry form for it) →
+multigrid (h, p, hp or ph levels, float32 by default) behind a precision
+adapter → CG or GMRES with deal.II's ReductionControl.
+
+The right-hand side ("rhs") comes with its Dirichlet data g: the port
+solves deal.II's homogeneous system (the lift in the free rows, b = 0 at
+constrained rows) and adds g to the solution.  The JAX package writes g
+into the constrained rows of b instead, which its Schwarz smoothers never
+reduce (ROADMAP queue 3).  The result dict carries the same keys (``it``,
+``converged``, ``time``, ``solution`` ...), plus ``setup_time``, the first
+solve's ``residuals`` and the ``preconditioner``.  Options outside the
+slice raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from ..device import (DEFAULT_DEVICE, LEVEL_DTYPE, OUTER_DTYPE,
                       assert_no_tf32, resolve_device, synchronize)
 from ..fem.dofs import DofHandler
+from ..fem.functions import make_rhs_and_dbc
 from ..fem.general_dofs import GeneralDofHandler
 from ..mesh.grid import StructuredMesh
 from ..mesh.transforms import kershaw_transform
@@ -56,11 +63,12 @@ class MeshFamily:
     name: str
     transform: object = None
     mapping_degree: int = 1
+    origin: tuple = None
 
     def mesh_at(self, refinement: int) -> StructuredMesh:
         cells = tuple(c * (1 << refinement) for c in self.base_cells)
         return StructuredMesh(self.dim, cells, lengths=self.lengths,
-                              transform=self.transform)
+                              transform=self.transform, origin=self.origin)
 
     @property
     def fine_mesh(self) -> StructuredMesh:
@@ -73,9 +81,11 @@ class MeshFamily:
     def dofs_at(self, refinement: int, degree: int) -> DofHandler:
         return DofHandler(self.mesh_at(refinement), degree)
 
-    def operator(self, dofs, dtype, device) -> LaplaceOperator:
+    def operator(self, dofs, dtype, device,
+                 mapping_type: str = "") -> LaplaceOperator:
         return LaplaceOperator(dofs, dtype=dtype, device=device,
-                               mapping_degree=self.mapping_degree)
+                               mapping_degree=self.mapping_degree,
+                               mapping_type=mapping_type)
 
     def transfer(self, coarse, fine, dtype, device) -> TwoLevelTransfer:
         return TwoLevelTransfer(coarse, fine, dtype=dtype, device=device)
@@ -116,7 +126,9 @@ class GeneralMeshFamily:
                                                 degree)
         return self._dofs[key]
 
-    def operator(self, dofs, dtype, device) -> GeneralLaplaceOperator:
+    def operator(self, dofs, dtype, device,
+                 mapping_type: str = "") -> GeneralLaplaceOperator:
+        # the JAX package's general operator has no compact mapping types
         return GeneralLaplaceOperator(dofs, dtype=dtype, device=device)
 
     def transfer(self, coarse, fine, dtype, device) -> GeneralTwoLevelTransfer:
@@ -152,8 +164,10 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
         return MeshFamily(dim, (ns * (1 << ni),) * dim, n_refine,
                           (1.0,) * dim, name, tf, min(mapping_degree, 3))
     if name == "symmetric hypercube":
-        raise NotImplementedError(
-            f"mesh {name!r} is not ported yet (ROADMAP item 9)")
+        ns = int(get_param(mesh_p, "n subdivisions", 1))
+        log("- Create mesh: symmetric hypercube\n")
+        return MeshFamily(dim, (ns,) * dim, n_refine, (2.0,) * dim, name,
+                          origin=(-1.0,) * dim)
     if name == "hyperball":
         if dim != 3:
             raise NotImplementedError(
@@ -263,9 +277,6 @@ def _check_unported_options(params: dict, device: torch.device) -> None:
     if n_devices(params, device) > 1:
         raise NotImplementedError(
             "'n devices' > 1 is not ported yet (ROADMAP item 14)")
-    if get_param(params, "operator mapping type", ""):
-        raise NotImplementedError(
-            "'operator mapping type' is not ported yet (ROADMAP item 8)")
     if get_param(params, "do output", False):
         raise NotImplementedError("'do output' is not ported yet "
                                   "(ROADMAP item 12)")
@@ -290,8 +301,14 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     family = make_mesh_family(params, log)
     mesh = family.fine_mesh
     dofs = family.dofs_at(family.n_refinements, fe_degree)
-    op = family.operator(dofs, dtype, device)
-    b = op.assemble_rhs(get_param(params, "rhs", "constant"))
+    # the compact geometry forms serve the outer operator only; the levels
+    # keep the merged coefficients, as in the JAX package (``poisson.py:345``)
+    op = family.operator(dofs, dtype, device,
+                         get_param(params, "operator mapping type", ""))
+    rhs_fn, dbc_fn = make_rhs_and_dbc(get_param(params, "rhs", "constant"),
+                                      family.dim)
+    b = op.assemble_rhs(rhs_fn, dirichlet=dbc_fn)
+    g = op.dirichlet_vector(dbc_fn)
 
     table.add_value("name", get_param(params, "name", family.name))
     table.add_value("n_cells", mesh.n_cells_total)
@@ -370,6 +387,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         table.add_value("it", 999)
     if print_timing:
         table.add_value("time", solve_time)
+        log("   - (the port prints no stage timings; ROADMAP item 12)")
     table.add_value("aspect_ratio", mesh.max_aspect_ratio())
     table.end_row()
     return {
@@ -381,7 +399,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         "time": solve_time,
         "setup_time": setup_time,
         "residuals": result.residuals,
-        "solution": result.x,
+        "solution": result.x if g is None else result.x + g,
         "preconditioner": precon,
         "table": table,
     }

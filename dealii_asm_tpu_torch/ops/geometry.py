@@ -10,6 +10,11 @@ the operator's device, where the (C, Q, 3, 3) tables of a 48³ Q4 mesh
 mesh on the host: a deformed ``StructuredMesh`` (its NumPy transform) or an
 ``UnstructuredMesh`` (its chart or projected multilinear blend); both give
 ``jacobian_factors(mapping_degree, q)``.
+
+``quadrature_points`` gives the physical points a right-hand side is
+evaluated at, as the JAX package's ``GeometryData.q_points`` (:131-156) and
+``GeneralLaplaceOperator.assemble_rhs`` (``laplace_general.py:446-448``)
+place them.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fem.lagrange import shape_1d, tensor_weights
+from ..fem.lagrange import (gauss_points, shape_1d, tensor_lattice,
+                            tensor_weights)
+from ..mesh.grid import StructuredMesh
 
 
 @dataclass
@@ -29,6 +36,16 @@ class MergedGeometry:
 
     coeff: torch.Tensor
     jxw: torch.Tensor
+
+
+def inv_det_2x2(J: torch.Tensor):
+    """(det, inv) of (..., 2, 2) matrices (``_inv_det_batched``)."""
+    a, b = J[..., 0, 0], J[..., 0, 1]
+    c, d = J[..., 1, 0], J[..., 1, 1]
+    det = a * d - b * c
+    inv = torch.stack([torch.stack([d, -b], dim=-1),
+                       torch.stack([-c, a], dim=-1)], dim=-2)
+    return det, inv / det[..., None, None]
 
 
 def inv_det_3x3(J: torch.Tensor):
@@ -51,18 +68,16 @@ def inv_det_3x3(J: torch.Tensor):
 
 def compute_geometry(mesh, n_q_1d: int, mapping_degree: int,
                      device) -> MergedGeometry:
-    """Merged geometry of a 3D structured or unstructured mesh; raises
+    """Merged geometry of a 2D or 3D structured or unstructured mesh; raises
     ValueError on a non-positive Jacobian determinant."""
-    if mesh.dim != 3:
-        raise NotImplementedError(
-            f"dim {mesh.dim}: the port runs 3D meshes only (ROADMAP item 9)")
+    dim = mesh.dim
     s = shape_1d(max(mapping_degree, 1), n_q_1d)
-    wq = torch.as_tensor(tensor_weights([s.w] * 3), device=device)
+    wq = torch.as_tensor(tensor_weights([s.w] * dim), device=device)
     B, sp = mesh.jacobian_factors(mapping_degree, s.q)
     B = torch.as_tensor(B, device=device)
     sp = torch.tensor(np.asarray(sp), device=device)  # copies: sp is read-only
     J = torch.einsum("qld,cle->cqed", B, sp)
-    det, Jinv = inv_det_3x3(J)
+    det, Jinv = (inv_det_3x3 if dim == 3 else inv_det_2x2)(J)
     del J
     if bool((det <= 0).any()):
         raise ValueError(
@@ -70,3 +85,14 @@ def compute_geometry(mesh, n_q_1d: int, mapping_degree: int,
     jxw = wq[None, :] * det
     coeff = (Jinv @ Jinv.transpose(-1, -2)) * jxw[:, :, None, None]
     return MergedGeometry(coeff, jxw)
+
+
+def quadrature_points(mesh, n_q_1d: int, mapping_degree: int) -> np.ndarray:
+    """(C, Q, dim) float64 physical Gauss points, x fastest: a structured
+    mesh maps its box points (``origin`` included) through its analytic
+    transform, an unstructured one through its Q_m mapping of
+    ``mapping_degree`` (the curved ball's boundary)."""
+    unit = tensor_lattice(gauss_points(n_q_1d)[0], mesh.dim)
+    if isinstance(mesh, StructuredMesh):
+        return mesh.physical_points(unit)
+    return mesh._physical_points(unit, mapping_degree)

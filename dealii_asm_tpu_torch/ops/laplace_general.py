@@ -18,9 +18,11 @@ import torch
 from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..fem.functions import constant_rhs, dirichlet_values, make_rhs_and_dbc
 from ..fem.lagrange import shape_1d, tensor_gradient, tensor_values
-from ..kernels.lanes_laplace import lanes_laplace, lanes_tables
-from .geometry import compute_geometry
+from ..kernels.lanes_laplace import (lanes_laplace, lanes_tables,
+                                     sumfac_cell_apply)
+from .geometry import compute_geometry, quadrature_points
 from .fixed_sum import FixedOrderSum
 from .tensorops import cell_diagonal, pack_merged_coeff
 
@@ -99,18 +101,45 @@ class GeneralLaplaceOperator(nn.Module):
         one = torch.ones((), dtype=self.dtype, device=self.device)
         return 1.0 / torch.where(self.tables.free, diag, one)
 
-    def assemble_rhs(self, rhs: str = "constant") -> torch.Tensor:
-        """b_i = ∫ f φ_i for f = 1: jxw times the basis values at the
-        quadrature points, summed into the DoFs in a fixed order, zero at
-        constrained DoFs (``laplace_general.py:442-473``; float64)."""
-        if rhs != "constant":
-            raise NotImplementedError(
-                f"rhs {rhs!r}: the port assembles the constant rhs only "
-                "(ROADMAP item 9)")
+    def dirichlet_vector(self, dirichlet) -> torch.Tensor | None:
+        """(n,) float64 g on the device: ``dirichlet`` at the constrained
+        DoFs' support points, 0 elsewhere; None where g vanishes."""
+        g = dirichlet_values(self.dofs, dirichlet)
+        return None if g is None else torch.as_tensor(g, device=self.device)
+
+    def unconstrained_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """The assembled operator without Dirichlet rows or columns (plain
+        torch): the cell integrals of u summed into the DoFs in a fixed
+        order (``laplace_general.py:459-470``)."""
+        m = self.degree + 1
+        W = u[self.tables.cell_dofs].reshape(-1, m, m, m)
+        local = sumfac_cell_apply(W, self.coeff6, self.shape_tabs)
+        return FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(
+            local.reshape(W.shape[0], -1))
+
+    def assemble_rhs(self, f="constant", dirichlet=None) -> torch.Tensor:
+        """b_i = ∫ f φ_i − (A g)_i on free DoFs, 0 on constrained ones
+        (``laplace_general.py:442-473``, on deal.II's homogeneous system;
+        float64): f at the quadrature points of the operator's mapping
+        times jxw and the basis values, summed into the DoFs in a fixed
+        order; ``f`` is a function of (P, 3) points or a name of
+        ``fem.functions.make_rhs_and_dbc``, ``dirichlet`` gives g."""
+        if isinstance(f, str):
+            f = make_rhs_and_dbc(f, self.dim)[0]
         s = shape_1d(self.degree, self.degree + 1)
-        Nval = torch.as_tensor(tensor_values(s.N, self.dim), device=self.device)
-        local = self.jxw @ Nval  # (C, L)
-        b = FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(local)
+        Nval = torch.as_tensor(tensor_values(s.N, self.dim),
+                               device=self.device)
+        jxw = self.jxw
+        if f is not constant_rhs:
+            qp = quadrature_points(self.dofs.mesh, self.degree + 1,
+                                   self.mapping_degree)
+            fq = f(qp.reshape(-1, self.dim))
+            jxw = jxw * torch.as_tensor(np.asarray(fq, np.float64),
+                                        device=self.device).reshape(jxw.shape)
+        b = FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(jxw @ Nval)
+        g = None if dirichlet is None else self.dirichlet_vector(dirichlet)
+        if g is not None:
+            b = b - self.unconstrained_apply(g.to(self.dtype)).to(b.dtype)
         b = torch.where(self.tables.free, b, torch.zeros((), dtype=b.dtype,
                                                          device=b.device))
         return b.to(self.dtype)

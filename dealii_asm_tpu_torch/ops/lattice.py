@@ -1,7 +1,8 @@
 """Patch windows of the node lattice (PyTorch).
 
 Counterpart of ``grid_to_cells_sliced`` and ``cells_to_grid_sliced``
-(``dealii_asm_tpu/ops/lattice.py:198-240``) on a non-periodic 3D lattice,
+(``dealii_asm_tpu/ops/lattice.py:198-240``) on a non-periodic 2D or 3D
+lattice,
 for windows of m nodes at stride p along each axis whose first window
 starts at node ``first`` (``window_layout``):
 
@@ -14,7 +15,7 @@ The windows are strided views of the (padded or cropped) grid
 (``Tensor.unfold``).  The transpose is an overlap-add in a fixed order:
 windows ⌈m/p⌉ apart never overlap, so each axis is ⌈m/p⌉ strided writes
 (two for element overlap 1 and for vertex patches).  No atomics: two calls
-give the same bits.  Layout (P, L): P windows (x fastest), L = m³ local
+give the same bits.  Layout (P, L): P windows (x fastest), L = m^dim local
 nodes (x fastest); the JAX package's (L, C) is its transpose, chosen there
 for the TPU's lane tiling.
 """
@@ -49,12 +50,12 @@ def _axis_pads(grid_shape: tuple, degree: int, m: int, first: int) -> list:
 
 def grid_to_windows(u_grid: torch.Tensor, degree: int, m: int,
                     first: int) -> torch.Tensor:
-    """(Nz, Ny, Nx) grid → (P, m³) windows."""
-    p = degree
-    u = F.pad(u_grid, _axis_pads(u_grid.shape, p, m, first))
-    w = u.unfold(0, m, p).unfold(1, m, p).unfold(2, m, p)
-    wz, wy, wx = w.shape[:3]
-    return w.reshape(wz * wy * wx, m ** 3)
+    """([Nz,] Ny, Nx) grid → (P, m^dim) windows."""
+    dim = u_grid.ndim
+    w = F.pad(u_grid, _axis_pads(u_grid.shape, degree, m, first))
+    for a in range(dim):
+        w = w.unfold(a, m, degree)
+    return w.reshape(-1, m ** dim)
 
 
 def _overlap_add_axis(w: torch.Tensor, axis: int, degree: int):
@@ -75,25 +76,27 @@ def _overlap_add_axis(w: torch.Tensor, axis: int, degree: int):
 
 def windows_to_grid(v: torch.Tensor, grid_shape: tuple, degree: int, m: int,
                     first: int) -> torch.Tensor:
-    """(P, m³) windows → (Nz, Ny, Nx) grid, overlapping window nodes summed
-    (the transpose of ``grid_to_windows``)."""
+    """(P, m^dim) windows → ([Nz,] Ny, Nx) grid, overlapping window nodes
+    summed (the transpose of ``grid_to_windows``)."""
+    dim = len(grid_shape)
     pads = _axis_pads(grid_shape, degree, m, first)
-    counts = [(n + pads[2 * (2 - a)] + pads[2 * (2 - a) + 1] - m) // degree + 1
-              for a, n in enumerate(grid_shape)]
-    w = v.reshape(*counts, m, m, m).permute(0, 3, 1, 4, 2, 5)
-    for a in range(3):
+    counts = [(n + pads[2 * (dim - 1 - a)] + pads[2 * (dim - 1 - a) + 1] - m)
+              // degree + 1 for a, n in enumerate(grid_shape)]
+    w = v.reshape(*counts, *(m,) * dim).permute(
+        *[i for a in range(dim) for i in (a, dim + a)])
+    for a in range(dim):
         w = _overlap_add_axis(w, a, degree)
     return F.pad(w, [-x for x in pads])
 
 
 def grid_to_cells_sliced(u_grid: torch.Tensor, degree: int) -> torch.Tensor:
-    """(Nz, Ny, Nx) grid → (C, (p+1)³) element windows of overlap 1."""
+    """([Nz,] Ny, Nx) grid → (C, (p+1)^dim) element windows of overlap 1."""
     return grid_to_windows(u_grid, degree, degree + 1, 0)
 
 
 def cells_to_grid_sliced(v: torch.Tensor, n_cells: tuple,
                          degree: int) -> torch.Tensor:
-    """(C, (p+1)³) element windows of overlap 1 → (Nz, Ny, Nx) grid,
+    """(C, (p+1)^dim) element windows of overlap 1 → ([Nz,] Ny, Nx) grid,
     overlapping window nodes summed."""
     grid = tuple(c * degree + 1 for c in reversed(n_cells))
     return windows_to_grid(v, grid, degree, degree + 1, 0)

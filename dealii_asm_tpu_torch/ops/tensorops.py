@@ -204,8 +204,13 @@ def banded_axis_apply(t: torch.Tensor, diags: torch.Tensor, grid_axis: int):
 
 def separable_laplace_apply_banded(u_grid, Mdiags, Kdiags):
     """v = Kz My Mx u + Mz Ky Mx u + Mz My Kx u with banded axis applies
-    (3D; Mdiags/Kdiags ordered by direction, x first)."""
-    ap = lambda t, tab, d: banded_axis_apply(t, tab, 2 - d)
+    (3D; 2D: Ky Mx u + My Kx u; Mdiags/Kdiags ordered by direction, x
+    first)."""
+    dim = u_grid.ndim
+    ap = lambda t, tab, d: banded_axis_apply(t, tab, dim - 1 - d)
+    if dim == 2:
+        a = ap(u_grid, Mdiags[0], 0)
+        return ap(a, Kdiags[1], 1) + ap(ap(u_grid, Kdiags[0], 0), Mdiags[1], 1)
     a = ap(u_grid, Mdiags[0], 0)
     b = ap(a, Mdiags[1], 1)
     v = ap(b, Kdiags[2], 2)
@@ -227,6 +232,18 @@ def fdm_global_apply(x_grid, Gs, Gts, inv_denom):
 
 
 def outer_grid(vecs_xyz):
-    """(Nz, Ny, Nx) outer product of per-direction vectors given x first."""
-    vx, vy, vz = vecs_xyz
-    return vz[:, None, None] * vy[None, :, None] * vx[None, None, :]
+    """([Nz,] Ny, Nx) outer product of per-direction vectors given x first
+    (z slowest, multiplied in from the slowest axis)."""
+    out = vecs_xyz[-1]
+    for v in reversed(vecs_xyz[:-1]):
+        out = out[..., None] * v
+    return out
+
+
+def outer_sum(vecs_xyz):
+    """([Nz,] Ny, Nx) outer sum of per-direction vectors given x first (the
+    FDM's eigenvalue sums λ_x + λ_y (+ λ_z))."""
+    out = vecs_xyz[0]
+    for v in vecs_xyz[1:]:
+        out = v.reshape(v.shape + (1,) * out.ndim) + out
+    return out

@@ -44,9 +44,9 @@ from torch import nn
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.patches import vertex_anchors
 from ..kernels.fdm_patch import FDMTables, fdm_patch, fdm_patch_plain
-from ..ops.laplace import check_structured_3d
+from ..ops.laplace import check_structured
 from ..ops.lattice import grid_to_windows, window_layout, windows_to_grid
-from ..ops.tensorops import fdm_direction_transform, outer_grid
+from ..ops.tensorops import fdm_direction_transform, outer_grid, outer_sum
 from .fdm import (FDMCollection, batched_generalized_eigh,
                   check_has_interior_vertex, fdm_1d_matrices_batched,
                   percoord_eigendecomposition,
@@ -135,12 +135,13 @@ class ASMPreconditioner(nn.Module):
     a Cartesian mesh: element patches of overlap 1..p, or vertex-star
     patches (``patch_type="vertex"``).
 
-    ``percoord`` (optional): per-direction (V (W_d, m, m), λ (W_d, m))
-    NumPy tables; ``ras_masks`` (optional): per-direction (W_d, m) RAS
-    masks; by default both are built here (``interop.py`` passes the JAX
+    2D meshes take the same global form (no kernel: the JAX package's FDM
+    kernel is 3D only).  ``percoord`` (optional): per-direction (V (W_d, m,
+    m), λ (W_d, m)) NumPy tables; ``ras_masks`` (optional): per-direction
+    (W_d, m) RAS masks; by default both are built here (``interop.py`` passes the JAX
     ones).  ``fused`` says whether the apply is kernel B, and the level may
     take the fused smoother kernels C and D: element patches of overlap 1
-    with a multiplicity weighting.
+    with a multiplicity weighting, in 3D.
     """
 
     is_symmetric = True
@@ -150,7 +151,7 @@ class ASMPreconditioner(nn.Module):
                  ras_masks=None, patch_type: str = "element"):
         super().__init__()
         _check_options(weighting_type, n_overlap, dofs.degree, patch_type)
-        check_structured_3d(dofs)
+        check_structured(dofs)
         if dofs.mesh.transform is not None:
             raise ValueError("a deformed mesh takes CellASMPreconditioner")
         self.dofs = dofs
@@ -161,8 +162,10 @@ class ASMPreconditioner(nn.Module):
         self.patch_type = patch_type
         self.m, _ = window_layout(dofs.degree, n_overlap, patch_type)
         self.is_symmetric = weighting_type in ("none", "symm")
+        # kernels B, C and D tile 3D overlap-1 element windows; the JAX
+        # package reaches its FDM kernel in 3D only (``fdm_slab.py:151``)
         self.fused = (patch_type == "element" and n_overlap == 1
-                      and weighting_type != "ras")
+                      and weighting_type != "ras" and self.dim == 3)
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = dofs.mesh
@@ -199,9 +202,7 @@ class ASMPreconditioner(nn.Module):
                                          Gt)):
                 self.register_buffer(f"{name}{d}", self._tensor(arr))
             lam_flat.append(getattr(self, f"lam{d}").reshape(-1))
-        lx, ly, lz = lam_flat
-        denom = lx[None, None, :] + ly[None, :, None] + lz[:, None, None]
-        self.register_buffer("inv_denom", 1.0 / denom)
+        self.register_buffer("inv_denom", 1.0 / outer_sum(lam_flat))
         per = {name: [getattr(self, f"{name}{d}") for d in range(self.dim)]
                for name in names}
         self.tables = FDMTables(per["V"], per["lam"], per["fin"], per["fout"],
@@ -313,7 +314,7 @@ class CellASMPreconditioner(nn.Module):
                  patch_type: str = "element", ras_mask=None):
         super().__init__()
         _check_options(weighting_type, n_overlap, dofs.degree, patch_type)
-        check_structured_3d(dofs)
+        check_structured(dofs)
         self.dofs = dofs
         self.dim = dofs.mesh.dim
         self.degree = p = dofs.degree

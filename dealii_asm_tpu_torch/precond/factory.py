@@ -61,10 +61,12 @@ def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
     has no banded tables and no kernel B tables, so it keeps the unfused
     smoother, as does an unstructured level, as in the JAX package; so does
     an overlap > 1, RAS or vertex-patch level, whose windows kernels B, C
-    and D do not tile (the JAX kernels refuse them,
+    and D do not tile, and a 2D level (the JAX kernels refuse them,
     ``smoother_step.py:1085-1089``, ``fdm_slab.py:151-154``)."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
-            or not inner.fused or not isinstance(op.tables, BandedTables)):
+            or not inner.fused or inner.dim != 3
+            or not isinstance(op.tables, BandedTables)
+            or len(op.tables.grid_shape) != 3):
         return
     attach_fused_kernels(smoother, op, inner, log)
 
@@ -179,8 +181,20 @@ def _create_fdm(op, params: dict, log):
     weighting = get_param(params, "weighting type", "symm")
     patch_type = ("element" if get_param(params, "element centric", True)
                   else "vertex")
+    sub_mesh = int(get_param(params, "sub mesh approximation",
+                             op.dofs.mesh.dim))
+    # "weight sequence" names the reference's storage of the weights; the
+    # weights fold into the FDM transforms here, so every sequence is the
+    # same apply (``factory.py:265-275``)
+    weight_sequence = get_param(params, "weight sequence",
+                                "global" if n_overlap > 1 else "compressed")
+    if weight_sequence not in ("global", "compressed", "dg"):
+        raise ValueError(f"weight sequence <{weight_sequence}> is not known!")
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
+    log(f"    - sub mesh approximation: {sub_mesh}")
+    log(f"    - weight sequence:        {weight_sequence} (storage strategy; "
+        "folded into the FDM transforms here)")
     log(f"    - patch type:             {patch_type}")
     log(f"    - weighting type:         {weighting}\n")
     # dispatch on the DoF handler first (``factory.py:283-291``): the

@@ -109,9 +109,16 @@ def test_assemble_rhs_matches_jax(cells, p):
 
 
 def test_assemble_rhs_other_functions_not_ported():
-    op = LaplaceOperator(_dofs((2, 2, 2), 2)[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        op.assemble_rhs("sin-mp")
+    """Every rhs of the solver program is ported (tests/test_torch_rhs.py):
+    a name resolves to its function and gives the JAX vector (constrained
+    entries 0); an unknown name raises, as in the JAX package."""
+    jdofs, dofs = _dofs((2, 2, 2), 2)
+    op = LaplaceOperator(dofs, device="cpu")
+    ref = np.array(JaxLaplace(jdofs, dtype=jnp.float64).assemble_rhs(
+        make_rhs_and_dbc("sin-mp", 3)[0]))
+    assert _rel(op.assemble_rhs("sin-mp").numpy(), ref) < 1e-12
+    with pytest.raises(ValueError, match="unknown rhs"):
+        op.assemble_rhs("cosine")
 
 
 @pytest.mark.parametrize("cells,p", [((3, 2, 4), 2), ((4, 4, 4), 4)])
@@ -141,8 +148,8 @@ def test_interop_drives_port_with_jax_tables():
 
 
 def test_unported_meshes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        LaplaceOperator(DofHandler(StructuredMesh(2, (2, 2)), 2))
+    # 2D Cartesian meshes are ported (tests/test_torch_2d.py); periodic
+    # meshes are not
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         LaplaceOperator(DofHandler(StructuredMesh(
             3, (2, 2, 2), periodic=(True, False, False)), 2))

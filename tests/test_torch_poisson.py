@@ -177,20 +177,16 @@ def test_mg_level_layout_matches_jax(mg_type, mesh, degree, seq):
 
 
 @pytest.mark.parametrize("path,value,item", [
-    # on the ball: the sin-mp rhs (vertex patches and RAS are ported,
-    # tests/test_torch_asm_vertex.py)
-    (("rhs",), "sin-mp", "ROADMAP item 9"),
+    # the rhs, the symmetric hypercube and the compact mapping types are
+    # ported (tests/test_torch_rhs.py, test_torch_mapping_types.py,
+    # test_torch_inputs.py); bfloat16 levels are not
     (("mg number type",), "bfloat16", "ROADMAP item 9"),
-    (("mesh", "name"), "symmetric hypercube", "ROADMAP item 9"),
     # GMRES is ported (tests/test_torch_gmres.py); BiCGStab is not
     (("solver", "type"), "Bicgstab", "ROADMAP item 11"),
     (("n devices",), 4, "ROADMAP item 14"),
-    (("operator mapping type",), "linear geometry", "ROADMAP item 8"),
 ])
 def test_unported_options_raise(path, value, item):
-    on_ball = path[-1] == "rhs"
-    params = _config("e2e_ball_q4 n refinements 0" if on_ball
-                     else "e2e_aniso_q4 n refinements 1")
+    params = _config("e2e_aniso_q4 n refinements 1")
     node = params
     for key in path[:-1]:
         node = node[key]
