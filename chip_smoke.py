@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only 9,13   # build + the named solve phases only
     python3 chip_smoke.py --only 14,15,16   # build + the vertex-patch phases
     python3 chip_smoke.py --only 17,18,19,20   # build + the named inputs
+    python3 chip_smoke.py --only 21   # build + the matrix-free-loop driver
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -129,7 +130,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    E launched (float32; float64 also where the outer operator is merged),
    B, C and D not;
 20. inputs/dummy.json (2D Q3, 625 DoFs, CG around Diagonal, plain torch):
-   24 iterations, no kernel launched.
+   24 iterations, no kernel launched;
+21. the matrix-free-loop benchmark driver (models/benchmark.py) on
+   periodic balanced hyper-cubes: experiments/matrix_free_loop.json and
+   every label family at s = 6, Q3 (operator, add/none/pre/post/symm/RAS
+   around element overlap 1 and 2 and vertex patches, every storage
+   letter, Chebyshev around the diagonal and around FDM) on the card
+   against the plain CPU path (the >> lines equal apart from the seconds;
+   one apply of each label within rel L2 1e-5, Chebyshev 1e-4); then
+   sweep_mfl_degree/input_0002.json and sweep_mfl_cheby/input_0002.json
+   at their own size (128 x 128 x 64 cells Q4, 67,108,864 DoFs): each
+   label's ms per call and per apply, setup seconds, one apply finite,
+   peak device memory, beside kernels A float32 and B at 64^3 cells Q4 per
+   DoF, timed before, between and after the two configs; kernels A to F
+   launched 0 times over the phase (kernels refuse periodic meshes, as the
+   JAX kernels do).
 Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
@@ -187,6 +202,26 @@ LADDER_FDMV = os.path.join(HERE, "experiments", "sweep_large_scaling",
 LADDER_FDMV_R0 = os.path.join(HERE, "experiments", "sweep_large_scaling",
                               "input_0003.json")
 INPUTS = os.path.join(HERE, "inputs")
+MFL = os.path.join(HERE, "experiments", "matrix_free_loop.json")
+MFL_FULL = [os.path.join(HERE, "experiments", d, "input_0002.json")
+            for d in ("sweep_mfl_degree", "sweep_mfl_cheby")]
+MFL_FULL_DOFS = 67_108_864
+# every label family of the matrix-free loop at s = 6, Q3 (2^3 periodic
+# cells, 216 DoFs): the operator, the weightings around element overlap 1
+# and 2 and vertex patches under every storage letter, RAS, Chebyshev
+# around the diagonal and around FDM
+MFL_FAMILIES = {
+    "dim": 3, "n subdivision": 6, "fe degree": 3, "n repetitions": 10,
+    "use cartesian mesh": True, "number type": "float32",
+    "preconditioner types":
+        "vmult add-1-c none-1-g-s-n pre-1-l post-1-dg symm-1-g-p-c ras-1-c "
+        "pre-2-l post-2-dg symm-2-g-p-n ras-2-c none-v-c pre-v-c post-v-l "
+        "symm-v-c ras-v-c cheby-3-0-diag cheby-3-2-symm-1-c "
+        "cheby-2-0-symm-2-g-p-n cheby-3-2-symm-v-c cheby-2-0-post-1-c"}
+# card against the CPU path, one apply of each label (relative L2): float32
+# rounding of the same plain torch products in another order; Chebyshev
+# labels carry the eigenvalue estimate's rounding through the polynomial
+MFL_TOL, MFL_TOL_CHEBY = 1e-5, 1e-4
 # the named study inputs: (own-size DoFs, small refinements, the JAX
 # package's count there; jw on the homogeneous system, pinned from one JAX
 # run each with its assemble_rhs zeroing the constrained rows, see
@@ -1249,6 +1284,7 @@ def run_new_paths(counts, phases) -> None:
                   slack=1, record=(), best_of=3)
     run_vertex_paths(counts, phases)
     run_input_paths(counts, phases)
+    run_benchmark_paths(phases)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1502,6 +1538,170 @@ def run_input_paths(counts, phases) -> None:
                   counts, record=(), absent=tuple(KERNELS), best_of=3)
 
 
+def _bench_lines(text: str) -> list:
+    return [l.split() for l in text.splitlines() if l.startswith(">>")]
+
+
+def check_benchmark_small(params: dict, name: str) -> None:
+    """The benchmark driver on the card against its plain CPU path: the
+    same ``>>`` lines apart from the seconds, and one apply of each label
+    to the same source vector within ``MFL_TOL`` (``MFL_TOL_CHEBY``)."""
+    import io
+
+    import torch
+
+    from dealii_asm_tpu_torch.models.benchmark import run_benchmark
+
+    applies, texts = {}, {}
+    for device in ("cpu", "cuda"):
+        got = applies.setdefault(device, {})
+        out = io.StringIO()
+        run_benchmark(params, out=out, device=device,
+                      on_label=lambda r, fn, src: got.__setitem__(
+                          r["label"], fn(src).cpu()))
+        texts[device] = out.getvalue()
+    cpu, card = _bench_lines(texts["cpu"]), _bench_lines(texts["cuda"])
+    labels = params["preconditioner types"].split()
+    if len(card) != len(labels) or [l[:4] + l[5:] for l in card] != \
+            [l[:4] + l[5:] for l in cpu]:
+        raise Failed(f"{name}: >> lines differ between the card and the "
+                     f"CPU:\n{texts['cuda']}{texts['cpu']}")
+    worst = {}
+    for label in labels:
+        a, b = applies["cuda"][label].double(), applies["cpu"][label].double()
+        err = float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b))
+        tol = MFL_TOL_CHEBY if label.startswith("cheby") else MFL_TOL
+        worst[label] = err
+        if not err <= tol:
+            raise Failed(f"{name} {label}: card against CPU rel L2 {err:.3e}"
+                         f" > {tol:g}")
+    print(f"  {name}: {len(labels)} labels, {card[0][2]} DoFs, >> lines equal "
+          f"to the CPU's apart from the seconds; card against CPU rel L2 "
+          f"max {max(worst.values()):.3e} "
+          f"({max(worst, key=worst.get)})")
+
+
+class Yardstick:
+    """Kernel A float32 and kernel B (symm) at 64^3 cells Q4, CUDA-event ms
+    per call, timed between the full-size configs of phase 21; their
+    launches are not counted (the counts are restored after each)."""
+
+    def __init__(self):
+        import torch
+
+        from dealii_asm_tpu_torch.fem.dofs import DofHandler
+        from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+        from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+        from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+
+        dofs = DofHandler(StructuredMesh(3, (64, 64, 64)), 4)
+        self.n = dofs.n_dofs
+        self.op = LaplaceOperator(dofs, dtype=torch.float32, device="cuda")
+        self.asm = ASMPreconditioner(dofs, weighting_type="symm",
+                                     dtype=torch.float32, device="cuda")
+        if not self.asm.fused:
+            raise Failed("the yardstick's FDM apply is not kernel B")
+        self.x = torch.randn(self.n, generator=torch.Generator().manual_seed(
+            SEED)).to(device="cuda", dtype=torch.float32)
+        self.a_ms, self.b_ms = [], []
+
+    def time(self) -> None:
+        from dealii_asm_tpu_torch.kernels import LAUNCHES
+
+        saved = dict(LAUNCHES)
+        self.a_ms.append(cuda_time(lambda: self.op.vmult(self.x), 20))
+        self.b_ms.append(cuda_time(lambda: self.asm.vmult(self.x), 20))
+        LAUNCHES.update(saved)
+
+    def per_dof_ns(self) -> tuple:
+        a = sum(self.a_ms) / len(self.a_ms)
+        b = sum(self.b_ms) / len(self.b_ms)
+        return a, b, a / self.n * 1e6, b / self.n * 1e6
+
+
+def run_benchmark_full(path: str, yard: Yardstick) -> None:
+    """One matrix-free-loop config at its own size through the driver on
+    the card: each label's ms per call and per apply (the line's count,
+    n_rep·factor), its setup seconds, one apply finite, the peak device
+    memory; then the yardstick in turn."""
+    import torch
+
+    from dealii_asm_tpu_torch.models.benchmark import run_benchmark
+
+    with open(path) as f:
+        params = json.load(f)
+    n_rep = int(params.get("n repetitions", 10))
+    name = os.path.relpath(path, HERE)
+    rows = []
+
+    def on_label(r, fn, src):
+        y = fn(src)
+        if y.shape != src.shape or not bool(torch.isfinite(y).all()):
+            raise Failed(f"{name} {r['label']}: one apply gives "
+                         f"{tuple(y.shape)}, finite="
+                         f"{bool(torch.isfinite(y).all())}")
+        rows.append(r)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = run_benchmark(params, device="cuda", on_label=on_label)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if n != MFL_FULL_DOFS:
+        raise Failed(f"{name}: {n} DoFs, expected {MFL_FULL_DOFS}")
+    a_ms, b_ms, a_ns, b_ns = yard.per_dof_ns()
+    print(f"  {name}: {n} DoFs, problem setup "
+          f"{rows[0]['problem_setup_s']:.3f} s, wall {wall:.1f} s, peak "
+          f"device memory {peak:.2f} GiB")
+    for r in rows:
+        ms_call = r["seconds"] / n_rep * 1e3
+        ms_apply = r["seconds"] / r["count"] * 1e3
+        print(f"    {r['label']}: {ms_call:.4f} ms per call, {ms_apply:.4f} "
+              f"ms per apply ({ms_apply / n * 1e6:.4f} ns per DoF; "
+              f"{ms_apply / (n * a_ns / 1e6):.2f}x kernel A, "
+              f"{ms_apply / (n * b_ns / 1e6):.2f}x kernel B per DoF), "
+              f"setup {r['setup_s']:.3f} s")
+    yard.time()
+
+
+def run_benchmark_paths(phases) -> None:
+    """Phase 21 (if named in ``phases``): the matrix-free-loop driver
+    (``models/benchmark.py``) on periodic meshes.  The card against the
+    CPU path at matrix_free_loop.json's size and on every label family at
+    s = 6, Q3; then sweep_mfl_degree/input_0002 and sweep_mfl_cheby/
+    input_0002 at their own size (67,108,864 DoFs, Q4), kernels A f32 and
+    B timed at 64^3 Q4 before, between and after them.  No kernel takes a
+    periodic mesh: A to F launched 0 times over the phase."""
+    if 21 not in phases:
+        return
+    from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print("== phase 21: matrix-free-loop benchmark (periodic meshes) on the "
+          "card")
+    reset_launch_counts()
+    with open(MFL) as f:
+        check_benchmark_small(json.load(f), "matrix_free_loop.json")
+    check_benchmark_small(MFL_FAMILIES, "label families at s=6 Q3")
+    yard = Yardstick()
+    yard.time()
+    for path in MFL_FULL:
+        run_benchmark_full(path, yard)
+    a_ms, b_ms, a_ns, b_ns = yard.per_dof_ns()
+    print(f"  yardstick at 64^3 cells Q4 ({yard.n} DoFs, float32): kernel A "
+          f"{a_ms:.4f} ms ({a_ns:.4f} ns per DoF; runs "
+          f"{', '.join(f'{t:.4f}' for t in yard.a_ms)}), kernel B symm "
+          f"{b_ms:.4f} ms ({b_ns:.4f} ns per DoF; runs "
+          f"{', '.join(f'{t:.4f}' for t in yard.b_ms)})")
+    got = launch_counts()
+    print(f"  launch counts over phase 21: {json.dumps(got)}")
+    launched = [k for k in KERNELS if got[k] != 0]
+    if launched:
+        raise Failed(f"kernels launched on periodic meshes: {launched}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -1509,7 +1709,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-20) to run after "
+                    help="comma-separated solve phases (9-21) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -1581,7 +1781,7 @@ def main(argv=None) -> int:
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
             run_ladder(counts)
-            run_new_paths(counts, range(9, 21))
+            run_new_paths(counts, range(9, 22))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -1,7 +1,6 @@
 """Patch DoF tables of the Schwarz smoothers on structured meshes (NumPy).
 
-Carried over from ``dealii_asm_tpu/fem/patches.py`` for non-periodic meshes
-(periodic meshes are ROADMAP item 9):
+Carried over from ``dealii_asm_tpu/fem/patches.py``:
 
 - ``element_patch_indices`` (:22): the (p − 1 + 2·o)^dim window of each cell
   at overlap o, starting at node c·p − (o − 1) along each axis;
@@ -9,8 +8,11 @@ Carried over from ``dealii_asm_tpu/fem/patches.py`` for non-periodic meshes
   2^dim cells around each interior vertex, starting at node v·p − (p − 1)
   for vertex v (the anchor cell v − 1 is the lower-left cell of the star).
 
-Local nodes and patches are numbered x fastest; slots outside the mesh hold
-the pad index ``n_dofs``.  The port's applies take these windows as strided
+On a periodic axis (N = p·C nodes) node ids wrap modulo N and every vertex
+is interior: C windows per axis, vertex 0 first (``:80-160``).  A 1-cell
+periodic axis (N = p) wraps a window onto itself, so a slot may repeat a
+node.  Local nodes and patches are numbered x fastest; slots outside a
+non-periodic mesh hold the pad index ``n_dofs``.  The port's applies take these windows as strided
 views of the node grid (``ops/lattice.py``); the tables are the host-side
 statement of the same windows.
 """
@@ -18,12 +20,6 @@ statement of the same windows.
 from __future__ import annotations
 
 import numpy as np
-
-
-def _check_non_periodic(mesh) -> None:
-    if any(mesh.periodic):
-        raise NotImplementedError(
-            "periodic meshes are not ported yet (ROADMAP item 9)")
 
 
 def _tensor_table(per_dim: list, strides: np.ndarray, m: int) -> np.ndarray:
@@ -45,7 +41,6 @@ def element_patch_indices(dofs, n_overlap: int) -> np.ndarray:
     """(C, m^dim) int32 element-patch DoF ids, m = p − 1 + 2·overlap, pad
     index n_dofs."""
     mesh = dofs.mesh
-    _check_non_periodic(mesh)
     p = dofs.degree
     m = p - 1 + 2 * n_overlap
     N = dofs.nodes_per_dim
@@ -54,24 +49,29 @@ def element_patch_indices(dofs, n_overlap: int) -> np.ndarray:
     per_dim = []
     for d in range(mesh.dim):
         k = mi[:, d, None].astype(np.int64) * p + offsets[None, :]
-        per_dim.append(np.where((k >= 0) & (k <= N[d] - 1), k, -1))
+        if mesh.periodic[d]:
+            per_dim.append(k % N[d])
+        else:
+            per_dim.append(np.where((k >= 0) & (k <= N[d] - 1), k, -1))
     strides = np.cumprod([1] + list(N[:-1]))
     out = _tensor_table(per_dim, strides, m)
     return np.where(out < 0, dofs.n_dofs, out).astype(np.int32)
 
 
 def interior_vertices(mesh) -> np.ndarray:
-    """(P, dim) multi-indices of the interior vertices, x fastest."""
-    _check_non_periodic(mesh)
-    grids = np.meshgrid(*[np.arange(1, n) for n in reversed(mesh.n_cells)],
-                        indexing="ij")
+    """(P, dim) multi-indices of the interior vertices, x fastest: 1 .. C − 1
+    along a non-periodic axis, 0 .. C − 1 along a periodic one."""
+    ranges = [np.arange(0 if per else 1, n)
+              for n, per in zip(mesh.n_cells, mesh.periodic)]
+    grids = np.meshgrid(*reversed(ranges), indexing="ij")
     return np.stack([g.ravel() for g in reversed(grids)], axis=1)
 
 
 def vertex_anchors(mesh) -> np.ndarray:
     """(P,) anchor cell of each interior vertex: the lower-left cell of the
-    2^dim block around it."""
-    return mesh.cell_flat_index(interior_vertices(mesh) - 1)
+    2^dim block around it (wrapped on a periodic axis)."""
+    return mesh.cell_flat_index(
+        (interior_vertices(mesh) - 1) % np.asarray(mesh.n_cells))
 
 
 def vertex_patch_indices(dofs) -> tuple[np.ndarray, np.ndarray]:
@@ -85,8 +85,9 @@ def vertex_patch_indices(dofs) -> tuple[np.ndarray, np.ndarray]:
     m = 2 * p - 1
     verts = interior_vertices(mesh)
     offsets = np.arange(m) - (p - 1)
-    per_dim = [verts[:, d, None].astype(np.int64) * p + offsets[None, :]
-               for d in range(mesh.dim)]
+    N = dofs.nodes_per_dim
+    per_dim = [(verts[:, d, None].astype(np.int64) * p + offsets[None, :])
+               % N[d] for d in range(mesh.dim)]
     strides = np.cumprod([1] + list(dofs.nodes_per_dim[:-1]))
     idx = _tensor_table(per_dim, strides, m)
     return idx.astype(np.int32), vertex_anchors(mesh).astype(np.int32)

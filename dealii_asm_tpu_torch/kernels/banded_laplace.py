@@ -103,20 +103,27 @@ class BandedTables:
     """Diagonal tables of the 1D factors, per direction (x first): each
     (2p+1, N_d), contiguous, on the operator's device and in its dtype.
     ``free`` is the (Nz, Ny, Nx) bool mask of unconstrained nodes, used by
-    the plain version; the kernel tests the node's lattice coordinates."""
+    the plain version; the kernel tests the node's lattice coordinates.
+    ``periodic`` (per direction, x first) marks wrapped axes, whose tables
+    hold the diagonals at ``offsets`` (``tensorops.banded_offsets``); only
+    the plain version takes them, as no JAX kernel does
+    (``dd_vmult.py:301,569``)."""
 
     Mdiags: list
     Kdiags: list
     p: int
     grid_shape: tuple  # (Nz, Ny, Nx)
     free: torch.Tensor
+    offsets: tuple = None
+    periodic: tuple = None
 
 
 def banded_laplace_plain(u: torch.Tensor, t: BandedTables,
                          rhs: torch.Tensor | None = None) -> torch.Tensor:
     g = u.reshape(t.grid_shape)
     u0 = torch.where(t.free, g, torch.zeros((), dtype=g.dtype, device=g.device))
-    v = separable_laplace_apply_banded(u0, t.Mdiags, t.Kdiags)
+    v = separable_laplace_apply_banded(u0, t.Mdiags, t.Kdiags, t.offsets,
+                                       t.periodic)
     v = torch.where(t.free, v, g).reshape(-1)
     return v if rhs is None else rhs - v
 
@@ -136,6 +143,9 @@ def banded_laplace(u: torch.Tensor, t: BandedTables,
         return banded_laplace_plain(u, t, rhs)
     if u.device.type != "cuda":
         raise TypeError(f"banded_laplace: unsupported device {u.device}")
+    if t.periodic and any(t.periodic):
+        raise ValueError("banded_laplace: the kernel does not take periodic "
+                         "meshes")
     nz, ny, nx = t.grid_shape
     n = nz * ny * nx
     tab0 = t.Mdiags[0]

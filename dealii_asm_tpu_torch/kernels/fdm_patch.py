@@ -37,6 +37,8 @@ class FDMTables:
     lam (C_d, m), fin/fout (N_d,) the input/output folds.
     Plain form: G (C_d·m, N_d) with fin folded, Gt (N_d, C_d·m) with fout
     folded, inv_denom the (C_z·m, C_y·m, C_x·m) reciprocal eigenvalue sums.
+    ``periodic`` (per direction, x first) marks wrapped axes; only the
+    plain form takes them, as no JAX kernel does (``fdm_slab.py:152``).
     """
 
     V: list
@@ -48,10 +50,19 @@ class FDMTables:
     inv_denom: torch.Tensor
     cells: tuple  # (Cz, Cy, Cx)
     p: int
+    periodic: tuple = None
 
     @property
     def grid_shape(self) -> tuple:
-        return tuple(c * self.p + 1 for c in self.cells)
+        per = reversed(self.periodic or (False,) * len(self.cells))
+        return tuple(c * self.p + (0 if w else 1)
+                     for c, w in zip(self.cells, per))
+
+
+def check_kernel_tables(t: FDMTables, name: str) -> None:
+    """The tiled kernels B, C and D take non-periodic 3D tables only."""
+    if t.periodic and any(t.periodic):
+        raise ValueError(f"{name}: the kernel does not take periodic meshes")
 
 
 # (tx, ty, cz, threads) per kernel and m = p + 1, as csrc/fdm_tile.cuh's
@@ -176,6 +187,7 @@ def fdm_patch(src: torch.Tensor, t: FDMTables, omega: float = 1.0,
         return fdm_patch_plain(src, t, omega, xold)
     if src.device.type != "cuda":
         raise TypeError(f"fdm_patch: unsupported device {src.device}")
+    check_kernel_tables(t, "fdm_patch")
     nz, ny, nx = t.grid_shape
     n = nz * ny * nx
     _check_vec(src, "src", t.V[0], n)

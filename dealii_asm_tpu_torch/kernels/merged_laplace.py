@@ -130,7 +130,13 @@ class MergedTables:
 
     @property
     def grid_shape(self) -> tuple:
-        return tuple(c * self.p + 1 for c in self.cells)
+        return tuple(self.free.shape)
+
+    @property
+    def periodic(self) -> bool:
+        """Whether an axis wraps (p·C nodes, not p·C + 1): kernel E refuses
+        it, as the JAX kernel does (``merged_vmult.py:344``)."""
+        return self.grid_shape != tuple(c * self.p + 1 for c in self.cells)
 
 
 def merged_laplace_plain(u: torch.Tensor, t: MergedTables,
@@ -149,6 +155,9 @@ def merged_laplace(u: torch.Tensor, t: MergedTables,
         return merged_laplace_plain(u, t, rhs)
     if u.device.type != "cuda":
         raise TypeError(f"merged_laplace: unsupported device {u.device}")
+    if t.periodic:
+        raise ValueError("merged_laplace: the kernel does not take periodic "
+                         "meshes")
     nz, ny, nx = t.grid_shape
     _check_vec(u, "u", t.coeff, nz * ny * nx)
     if rhs is not None:

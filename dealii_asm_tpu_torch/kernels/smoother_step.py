@@ -16,7 +16,8 @@ import torch
 from . import LAUNCHES
 from .banded_laplace import BandedTables, _check_vec, banded_laplace_plain
 from .build import check
-from .fdm_patch import FDMTables, _kernel_fn, _pointers, fdm_patch_plain
+from .fdm_patch import (FDMTables, _kernel_fn, _pointers,
+                        check_kernel_tables, fdm_patch_plain)
 
 
 def smoother_step_plain(x: torch.Tensor, b: torch.Tensor, a: BandedTables,
@@ -30,6 +31,7 @@ def smoother_step(x: torch.Tensor, b: torch.Tensor, a: BandedTables,
         return smoother_step_plain(x, b, a, f, omega)
     if x.device.type != "cuda":
         raise TypeError(f"smoother_step: unsupported device {x.device}")
+    check_kernel_tables(f, "smoother_step")
     if a.p != f.p or tuple(a.grid_shape) != f.grid_shape:
         raise ValueError("smoother_step: operator and FDM tables disagree "
                          f"(p {a.p}/{f.p}, grid {a.grid_shape}/{f.grid_shape})")

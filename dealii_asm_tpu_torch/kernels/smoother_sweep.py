@@ -29,7 +29,8 @@ import torch
 from . import LAUNCHES
 from .banded_laplace import BandedTables, _check_vec, banded_laplace_plain
 from .build import check
-from .fdm_patch import FDMTables, _kernel_fn, _pointers, fdm_patch_plain
+from .fdm_patch import (FDMTables, _kernel_fn, _pointers,
+                        check_kernel_tables, fdm_patch_plain)
 
 _C_SCALAR = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
@@ -55,6 +56,7 @@ def smoother_sweep(x: torch.Tensor | None, b: torch.Tensor, a: BandedTables,
         return smoother_sweep_plain(x, b, a, f, coefs, zero_x)
     if b.device.type != "cuda":
         raise TypeError(f"smoother_sweep: unsupported device {b.device}")
+    check_kernel_tables(f, "smoother_sweep")
     if a.p != f.p or tuple(a.grid_shape) != f.grid_shape:
         raise ValueError("smoother_sweep: operator and FDM tables disagree "
                          f"(p {a.p}/{f.p}, grid {a.grid_shape}/{f.grid_shape})")

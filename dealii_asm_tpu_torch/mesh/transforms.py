@@ -1,7 +1,8 @@
 """Analytic mesh transformations (vectorized NumPy, unit-cube input).
 
-Carried over from ``dealii_asm_tpu/mesh/transforms.py:16-75``: the Kershaw
-deformation (quintic-smoothstep variant).  A transform maps an (N, dim)
+Carried over from ``dealii_asm_tpu/mesh/transforms.py``: the Kershaw
+deformation (quintic-smoothstep variant, :16-75) and the sinusoidal
+displacement of the benchmark's deformed periodic box (:89).  A transform maps an (N, dim)
 array of box points to (N, dim) physical points.
 """
 
@@ -68,5 +69,20 @@ def kershaw_transform(epsy: float, epsz: float, shift_mp: bool = False):
         if shift_mp:
             out = out - 0.5
         return out
+
+    return f
+
+
+def sinusoidal_displacement(amplitude: float = 0.1):
+    """Displacement d_i = A·sin(2π p_{(i+1) % dim})·sin(π p_i), added to
+    the point."""
+
+    def f(p: np.ndarray) -> np.ndarray:
+        p = np.asarray(p, dtype=np.float64)
+        dim = p.shape[1]
+        disp = np.stack([amplitude * np.sin(2.0 * np.pi * p[:, (d + 1) % dim])
+                         * np.sin(np.pi * p[:, d]) for d in range(dim)],
+                        axis=1)
+        return p + disp
 
     return f

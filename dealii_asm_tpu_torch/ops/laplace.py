@@ -4,12 +4,17 @@ Counterpart of ``dealii_asm_tpu/ops/laplace.py::LaplaceOperator`` on the
 node lattice.  The geometry decides the form, as in the JAX package:
 - Cartesian cells (``laplace.py:150-268``): the separable
   Σ_d M̂⊗…K̂_d…⊗M̂ with assembled banded 1D factors, applied by kernel A
-  (``kernels/banded_laplace.py``) in 3D; 2D meshes reach no Pallas kernel in
-  the JAX package and take the plain banded form on every device;
+  (``kernels/banded_laplace.py``) in 3D; 2D meshes and periodic meshes
+  reach no Pallas kernel in the JAX package (``dd_vmult.py:301,569``) and
+  take the plain banded form on every device, a periodic axis with wrapped
+  padding and, where 2p + 1 exceeds its N = p·C nodes, the aliased offsets
+  0..N − 1 (``tensorops.banded_offsets``);
 - a deformed mesh (``mesh.transform`` set; ``laplace.py:323-417``): the
   merged form, the symmetric w|J|J⁻¹J⁻ᵀ per quadrature point of an
   isoparametric Q_m mapping, applied by kernel E
-  (``kernels/merged_laplace.py``);
+  (``kernels/merged_laplace.py``), or by the plain merged form on a
+  periodic mesh, which kernel E refuses as the JAX one does
+  (``merged_vmult.py:344``);
 - a deformed mesh with a compact ``mapping_type`` ("linear geometry",
   "quadratic geometry", "construct q"; ``laplace.py:122-133, 280-320,
   515-540``): per-cell mapping support points (or stored quadrature points)
@@ -18,6 +23,8 @@ node lattice.  The geometry decides the form, as in the JAX package:
   torch here, on every device.
 Kernels A and E run in float32 or native float64.  Constrained (Dirichlet)
 rows act as identity: ``vmult(u)`` is ``where(free, A·where(free, u, 0), u)``.
+A fully periodic box has no constrained row; its operator is singular, the
+constants its null space, as in the JAX package.
 
 ``assemble_rhs(f, dirichlet)`` solves deal.II's homogeneous system: the
 lift −A·g of the Dirichlet data g goes into the free rows, the constrained
@@ -38,7 +45,8 @@ from ..fem.lagrange import (gauss_lobatto_points, lagrange_derivatives,
 from ..kernels.banded_laplace import (BandedTables, banded_laplace,
                                       banded_laplace_plain)
 from ..kernels.lanes_laplace import sumfac_gradients, sumfac_integrate
-from ..kernels.merged_laplace import MergedTables, merged_laplace
+from ..kernels.merged_laplace import (MergedTables, merged_laplace,
+                                     merged_laplace_plain)
 from .geometry import compute_geometry, inv_det_3x3, quadrature_points
 from .lattice import cells_to_grid_sliced, grid_to_cells_sliced
 from .tensorops import (banded_diagonals, cell_diagonal,
@@ -53,8 +61,8 @@ COMPACT_MAPPING_TYPES = {"linear geometry": "linear",
 
 
 def check_structured(dofs) -> None:
-    """The port's structured operators cover 2D and 3D non-periodic meshes,
-    deformed ones in 3D."""
+    """The port's structured operators cover 2D and 3D meshes, periodic or
+    not, deformed ones in 3D."""
     mesh = dofs.mesh
     if mesh.dim not in (2, 3):
         raise NotImplementedError(
@@ -62,9 +70,6 @@ def check_structured(dofs) -> None:
     if mesh.dim == 2 and mesh.transform is not None:
         raise NotImplementedError(
             "deformed 2D meshes are not ported yet (ROADMAP item 9)")
-    if any(mesh.periodic):
-        raise NotImplementedError(
-            "periodic meshes are not ported yet (ROADMAP item 9)")
 
 
 class LaplaceOperator(nn.Module):
@@ -97,6 +102,7 @@ class LaplaceOperator(nn.Module):
         free = [torch.as_tensor(dofs.free_1d(d) > 0, device=self.device)
                 for d in range(self.dim)]
         self.register_buffer("free", outer_grid(free))  # grid_shape bool
+        self.periodic = tuple(dofs.mesh.periodic)
         self.deformed = dofs.mesh.transform is not None
         self.compact = (COMPACT_MAPPING_TYPES.get(mapping_type)
                         if self.deformed else None)
@@ -117,17 +123,24 @@ class LaplaceOperator(nn.Module):
             factors = global_laplace_1d_factors(dofs.mesh, self.degree)
         self.M1d_global = [np.asarray(M, np.float64) for M, _ in factors]
         self.K1d_global = [np.asarray(K, np.float64) for _, K in factors]
+        offsets = []
         for d in range(self.dim):
-            md, _ = banded_diagonals(self.M1d_global[d], self.degree)
-            kd, _ = banded_diagonals(self.K1d_global[d], self.degree)
+            md, offs = banded_diagonals(self.M1d_global[d], self.degree,
+                                        self.periodic[d])
+            kd, _ = banded_diagonals(self.K1d_global[d], self.degree,
+                                     self.periodic[d])
             self.register_buffer(f"Mdiag{d}", self._tensor(md))
             self.register_buffer(f"Kdiag{d}", self._tensor(kd))
+            offsets.append(tuple(offs))
         self.tables = BandedTables(
             [getattr(self, f"Mdiag{d}") for d in range(self.dim)],
             [getattr(self, f"Kdiag{d}") for d in range(self.dim)],
-            self.degree, self.grid_shape, self.free)
-        # kernel A tiles 3D grids; a 2D grid takes the plain banded form
-        self._kernel = (banded_laplace if self.dim == 3
+            self.degree, self.grid_shape, self.free, tuple(offsets),
+            self.periodic)
+        # kernel A tiles non-periodic 3D grids; a 2D or periodic grid takes
+        # the plain banded form, as the JAX kernels refuse them
+        self._kernel = (banded_laplace
+                        if self.dim == 3 and not any(self.periodic)
                         else banded_laplace_plain)
 
     def _init_merged(self, mapping_degree, geometry):
@@ -153,16 +166,19 @@ class LaplaceOperator(nn.Module):
         self.register_buffer("shape_tabs", shape_host.to(self.device))
         for d in range(self.dim):
             n, c = self.dofs.nodes_per_dim[d], mesh.n_cells[d]
+            per = self.periodic[d]
             self.register_buffer(f"Ev{d}", self._tensor(
-                interp_direction_transform(s.N, n, p, c, False)))
+                interp_direction_transform(s.N, n, p, c, per)))
             self.register_buffer(f"Ed{d}", self._tensor(
-                interp_direction_transform(Ds[d], n, p, c, False)))
+                interp_direction_transform(Ds[d], n, p, c, per)))
         self.tables = MergedTables(
             self.coeff6, self.shape_tabs, shape_host,
             [getattr(self, f"Ev{d}") for d in range(self.dim)],
             [getattr(self, f"Ed{d}") for d in range(self.dim)],
             p, tuple(reversed(mesh.n_cells)), self.free)
-        self._kernel = merged_laplace
+        # kernel E's cells own non-periodic lattices
+        self._kernel = (merged_laplace_plain if any(self.periodic)
+                        else merged_laplace)
 
     def _init_compact(self, mapping_degree):
         """Compact geometry (``laplace.py:280-320``): the linear and
@@ -230,9 +246,10 @@ class LaplaceOperator(nn.Module):
         return v.reshape(W.shape[0], -1)
 
     def _compact_unconstrained(self, grid: torch.Tensor) -> torch.Tensor:
-        W = grid_to_cells_sliced(grid, self.degree)
+        W = grid_to_cells_sliced(grid, self.degree, self.periodic)
         return cells_to_grid_sliced(self._compact_cells(W),
-                                    self.dofs.mesh.n_cells, self.degree)
+                                    self.dofs.mesh.n_cells, self.degree,
+                                    self.periodic)
 
     def _compact_apply(self, u: torch.Tensor, tables=None,
                        rhs: torch.Tensor | None = None) -> torch.Tensor:
@@ -271,8 +288,9 @@ class LaplaceOperator(nn.Module):
                                     self.degree + 1)
             return merged_laplace_apply(grid, self.tables.Ev, self.tables.Ed,
                                         c6)
-        return separable_laplace_apply_banded(grid, self.tables.Mdiags,
-                                              self.tables.Kdiags)
+        return separable_laplace_apply_banded(
+            grid, self.tables.Mdiags, self.tables.Kdiags, self.tables.offsets,
+            self.periodic)
 
     # -- setup: diagonal and right-hand side ---------------------------------
 
@@ -309,7 +327,7 @@ class LaplaceOperator(nn.Module):
                              / h[d] for d in range(self.dim)], axis=2)
             local = cell_diagonal(self._merged_coeff6(), grad)
             diag = cells_to_grid_sliced(local, self.dofs.mesh.n_cells,
-                                        self.degree)
+                                        self.degree, self.periodic)
             return 1.0 / torch.where(self.free, diag, one).reshape(-1)
         dM = [self._tensor(np.diagonal(M)) for M in self.M1d_global]
         dK = [self._tensor(np.diagonal(K)) for K in self.K1d_global]
@@ -366,7 +384,8 @@ class LaplaceOperator(nn.Module):
                         jxw.shape)
             Nval = torch.as_tensor(tensor_values(s.N, self.dim),
                                    device=self.device)
-            b = cells_to_grid_sliced(jxw @ Nval, mesh.n_cells, p)
+            b = cells_to_grid_sliced(jxw @ Nval, mesh.n_cells, p,
+                                     self.periodic)
         g = None if dirichlet is None else self.dirichlet_vector(dirichlet)
         if g is not None:
             b = b - self.unconstrained_apply(

@@ -30,7 +30,10 @@ from ..fem.lagrange import reference_mass_stiffness_1d
 
 def assemble_global_1d(degree: int, n_cells: int, h: float, periodic: bool,
                        n_q_1d: int | None = None):
-    """Global assembled 1D mass/stiffness (N × N), natural boundary rows."""
+    """Global assembled 1D mass/stiffness (N × N), natural boundary rows.
+    A 1-cell periodic axis (N = p) maps the cell's two end nodes to node 0,
+    so the cell's entries accumulate (``np.add.at``), as the JAX package's
+    C++ setup core assembles them."""
     M_ref, K_ref = reference_mass_stiffness_1d(degree, n_q_1d)
     p = degree
     N = p * n_cells if periodic else p * n_cells + 1
@@ -38,8 +41,8 @@ def assemble_global_1d(degree: int, n_cells: int, h: float, periodic: bool,
     K = np.zeros((N, N))
     for c in range(n_cells):
         idx = (c * p + np.arange(p + 1)) % N
-        M[np.ix_(idx, idx)] += M_ref * h
-        K[np.ix_(idx, idx)] += K_ref / h
+        np.add.at(M, (idx[:, None], idx[None, :]), M_ref * h)
+        np.add.at(K, (idx[:, None], idx[None, :]), K_ref / h)
     return M, K
 
 
@@ -82,12 +85,14 @@ def fdm_direction_transform(eigvecs_c: np.ndarray, n_nodes: int, degree: int,
 def interp_direction_transform(B: np.ndarray, n_nodes: int, degree: int,
                                n_cells: int, periodic: bool) -> np.ndarray:
     """Global per-axis evaluation matrix E (C·q × N) from a 1D shape matrix
-    B (q × p+1): row (c, iq) evaluates at quadrature point iq of cell c."""
+    B (q × p+1): row (c, iq) evaluates at quadrature point iq of cell c.
+    On a 1-cell periodic axis (N = p) the cell's two end nodes are node 0,
+    so their columns add."""
     q, n1 = B.shape
     E = np.zeros((n_cells * q, n_nodes))
     for c in range(n_cells):
         cols = (c * degree + np.arange(n1)) % n_nodes
-        E[c * q:(c + 1) * q, cols] = B
+        np.add.at(E, (slice(c * q, (c + 1) * q), cols), B)
     return E
 
 
@@ -183,31 +188,48 @@ def axis_matmul(T: torch.Tensor, M: torch.Tensor, grid_axis: int):
                          grid_axis)
 
 
-def banded_axis_apply(t: torch.Tensor, diags: torch.Tensor, grid_axis: int):
-    """y = M̂ t along one grid axis, M̂ given by its (2b+1, N) diagonal table
-    with offsets -b..b (non-periodic: zero padding)."""
+def banded_axis_apply(t: torch.Tensor, diags: torch.Tensor, grid_axis: int,
+                      offsets=None, periodic: bool = False):
+    """y = M̂ t along one grid axis, M̂ given by its diagonal table: row k
+    holds the diagonal at ``offsets[k]`` (default −b..b).  A non-periodic
+    axis pads with zeros, a periodic one by wrapping, which with the
+    aliased offsets 0..N−1 of a short periodic axis (``banded_offsets``)
+    counts every column once (``dealii_asm_tpu/ops/tensorops.py:270-300``)."""
     nd = t.ndim
-    b = (diags.shape[0] - 1) // 2
+    if offsets is None:
+        b = (diags.shape[0] - 1) // 2
+        offsets = range(-b, b + 1)
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
     N = t.shape[grid_axis]
     shape = [1] * nd
     shape[grid_axis] = N
-    pad = [0, 0] * nd  # F.pad order: last axis first
-    pad[2 * (nd - 1 - grid_axis)] = b
-    pad[2 * (nd - 1 - grid_axis) + 1] = b
-    tp = torch.nn.functional.pad(t, pad)
+    if periodic:
+        parts = [t.narrow(grid_axis, N - lo, lo)] if lo else []
+        parts += [t] + ([t.narrow(grid_axis, 0, hi)] if hi else [])
+        tp = torch.cat(parts, dim=grid_axis)
+    else:
+        pad = [0, 0] * nd  # F.pad order: last axis first
+        pad[2 * (nd - 1 - grid_axis)] = lo
+        pad[2 * (nd - 1 - grid_axis) + 1] = hi
+        tp = torch.nn.functional.pad(t, pad)
     acc = None
-    for k in range(2 * b + 1):
-        term = diags[k].reshape(shape) * tp.narrow(grid_axis, k, N)
+    for k, off in enumerate(offsets):
+        term = diags[k].reshape(shape) * tp.narrow(grid_axis, lo + off, N)
         acc = term if acc is None else acc + term
     return acc
 
 
-def separable_laplace_apply_banded(u_grid, Mdiags, Kdiags):
+def separable_laplace_apply_banded(u_grid, Mdiags, Kdiags, offsets=None,
+                                   periodic=None):
     """v = Kz My Mx u + Mz Ky Mx u + Mz My Kx u with banded axis applies
-    (3D; 2D: Ky Mx u + My Kx u; Mdiags/Kdiags ordered by direction, x
+    (3D; 2D: Ky Mx u + My Kx u; Mdiags/Kdiags, and the optional per-
+    direction ``offsets`` and ``periodic`` flags, ordered by direction, x
     first)."""
     dim = u_grid.ndim
-    ap = lambda t, tab, d: banded_axis_apply(t, tab, dim - 1 - d)
+    offs = offsets or (None,) * dim
+    per = periodic or (False,) * dim
+    ap = lambda t, tab, d: banded_axis_apply(t, tab, dim - 1 - d, offs[d],
+                                             per[d])
     if dim == 2:
         a = ap(u_grid, Mdiags[0], 0)
         return ap(a, Kdiags[1], 1) + ap(ap(u_grid, Kdiags[0], 0), Mdiags[1], 1)

@@ -26,6 +26,12 @@ forms:
   grid (``ops/lattice.py``).  The JAX package applies these tables in XLA,
   not in a Pallas kernel.
 
+Periodic axes (``asm.py:371-446``): every vertex is interior, window
+starts wrap modulo N = p·C (a 1-cell axis wraps a window onto itself, so
+its weights count a node once per slot), and the global form's G_d wraps
+its columns.  Kernels B, C and D refuse periodic meshes, as the JAX FDM
+kernel does (``fdm_slab.py:152``), so they take the plain global form.
+
 In both, the multiplicity weights (none/pre/post/symm) and the Dirichlet
 masks are separable per axis on the lattice, so they fold into per-axis
 vectors (``fin``/``fout``).  So does RAS: with patches numbered x fastest,
@@ -45,7 +51,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.patches import vertex_anchors
 from ..kernels.fdm_patch import FDMTables, fdm_patch, fdm_patch_plain
 from ..ops.laplace import check_structured
-from ..ops.lattice import grid_to_windows, window_layout, windows_to_grid
+from ..ops.lattice import (axis_firsts, grid_to_windows, window_layout,
+                           windows_to_grid)
 from ..ops.tensorops import fdm_direction_transform, outer_grid, outer_sum
 from .fdm import (FDMCollection, batched_generalized_eigh,
                   check_has_interior_vertex, fdm_1d_matrices_batched,
@@ -58,44 +65,56 @@ _FOLD_EXPONENTS = {"none": (0.0, 0.0), "pre": (1.0, 0.0),
 
 
 def axis_window_starts(n_cells: int, degree: int, n_overlap: int = 1,
-                       patch: str = "element"):
+                       patch: str = "element", periodic: bool = False):
     """First node of each window along one axis (``asm.py:371``): element
     windows c·p − (o − 1), one per cell (slots before 0 or past the last
-    node are ghosts); vertex windows v·p + 1, one per interior vertex."""
-    _, first = window_layout(degree, n_overlap, patch)
-    count = n_cells if patch == "element" else n_cells - 1
+    node are ghosts, or wrap on a periodic axis); vertex windows v·p + 1,
+    one per interior vertex, or v·p − (p − 1) for every vertex v of a
+    periodic axis."""
+    _, first = window_layout(degree, n_overlap, patch, periodic)
+    count = n_cells if patch == "element" or periodic else n_cells - 1
     return [first + w * degree for w in range(count)]
 
 
+def _axis_slots(n_nodes: int, n_cells: int, degree: int, n_overlap: int,
+                patch: str, periodic: bool) -> np.ndarray:
+    """(W, m) node of each window slot along one axis; −1 for a ghost."""
+    m, _ = window_layout(degree, n_overlap, patch, periodic)
+    starts = axis_window_starts(n_cells, degree, n_overlap, patch, periodic)
+    k = np.asarray(starts)[:, None] + np.arange(m)[None, :]
+    if periodic:
+        return k % n_nodes
+    return np.where((k >= 0) & (k < n_nodes), k, -1)
+
+
 def axis_weight(n_nodes: int, n_cells: int, degree: int,
-                n_overlap: int = 1, patch: str = "element") -> np.ndarray:
+                n_overlap: int = 1, patch: str = "element",
+                periodic: bool = False) -> np.ndarray:
     """1D multiplicity weight of the windows along one axis
-    (``asm.py:382-401``); the node weights are the tensor product ⊗_d w_d."""
-    m, _ = window_layout(degree, n_overlap, patch)
-    counts = np.zeros(n_nodes)
-    for start in axis_window_starts(n_cells, degree, n_overlap, patch):
-        counts[max(start, 0):min(start + m, n_nodes)] += 1.0
+    (``asm.py:382-401``; a slot that wraps onto a node its window already
+    holds counts again); the node weights are the tensor product ⊗_d w_d."""
+    k = _axis_slots(n_nodes, n_cells, degree, n_overlap, patch, periodic)
+    counts = np.bincount(k[k >= 0], minlength=n_nodes).astype(np.float64)
     counts[counts == 0] = 1.0
     return 1.0 / counts
 
 
 def ras_axis_mask(free: np.ndarray, n_cells: int, degree: int,
-                  n_overlap: int = 1, patch: str = "element") -> np.ndarray:
+                  n_overlap: int = 1, patch: str = "element",
+                  periodic: bool = False) -> np.ndarray:
     """(W, m) RAS mask of one axis: 1 where window w's slot s holds a free
-    node and w is the lowest window holding it, else 0.  The (P, m³) mask
-    of ``asm.py::_ras_ownership`` is the tensor product of the three."""
-    m, _ = window_layout(degree, n_overlap, patch)
-    starts = axis_window_starts(n_cells, degree, n_overlap, patch)
+    node and w is the lowest window holding it, else 0 (every slot of the
+    owner that holds the node, where a periodic window wraps onto itself).
+    The (P, m³) mask of ``asm.py::_ras_ownership`` is the tensor product of
+    the three."""
     n_nodes = free.shape[0]
-    owner = np.full(n_nodes, -1)
-    mask = np.zeros((len(starts), m))
-    for w, start in enumerate(starts):
-        for s in range(m):
-            n = start + s
-            if 0 <= n < n_nodes and owner[n] < 0:
-                owner[n] = w
-                mask[w, s] = free[n]
-    return mask
+    k = _axis_slots(n_nodes, n_cells, degree, n_overlap, patch, periodic)
+    W = k.shape[0]
+    owner = np.full(n_nodes + 1, W)
+    np.minimum.at(owner, np.where(k >= 0, k, n_nodes),
+                  np.broadcast_to(np.arange(W)[:, None], k.shape))
+    own = (k >= 0) & (owner[k] == np.arange(W)[:, None])
+    return np.where(own, np.asarray(free, np.float64)[k], 0.0)
 
 
 def ras_ownership(idx: np.ndarray, n_dofs: int) -> np.ndarray:
@@ -126,7 +145,7 @@ def _axis_folds(dofs, weighting_type: str, d: int, n_overlap: int = 1,
     a_in, a_out = _FOLD_EXPONENTS[weighting_type]
     free = dofs.free_1d(d)
     w = axis_weight(dofs.nodes_per_dim[d], dofs.mesh.n_cells[d], dofs.degree,
-                    n_overlap, patch)
+                    n_overlap, patch, dofs.mesh.periodic[d])
     return free * w ** a_in, free * w ** a_out
 
 
@@ -141,7 +160,7 @@ class ASMPreconditioner(nn.Module):
     (W_d, m) RAS masks; by default both are built here (``interop.py`` passes the JAX
     ones).  ``fused`` says whether the apply is kernel B, and the level may
     take the fused smoother kernels C and D: element patches of overlap 1
-    with a multiplicity weighting, in 3D.
+    with a multiplicity weighting, on a non-periodic 3D mesh.
     """
 
     is_symmetric = True
@@ -162,10 +181,13 @@ class ASMPreconditioner(nn.Module):
         self.patch_type = patch_type
         self.m, _ = window_layout(dofs.degree, n_overlap, patch_type)
         self.is_symmetric = weighting_type in ("none", "symm")
-        # kernels B, C and D tile 3D overlap-1 element windows; the JAX
-        # package reaches its FDM kernel in 3D only (``fdm_slab.py:151``)
+        # kernels B, C and D tile non-periodic 3D overlap-1 element
+        # windows; the JAX package reaches its FDM kernel only there
+        # (``fdm_slab.py:151-154``, ``smoother_step.py:1086``)
+        self.periodic = tuple(dofs.mesh.periodic)
         self.fused = (patch_type == "element" and n_overlap == 1
-                      and weighting_type != "ras" and self.dim == 3)
+                      and weighting_type != "ras" and self.dim == 3
+                      and not any(self.periodic))
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = dofs.mesh
@@ -178,7 +200,8 @@ class ASMPreconditioner(nn.Module):
                          for V, l in percoord]
         if weighting_type == "ras" and ras_masks is None:
             ras_masks = [ras_axis_mask(dofs.free_1d(d), mesh.n_cells[d], p,
-                                       n_overlap, patch_type)
+                                       n_overlap, patch_type,
+                                       self.periodic[d])
                          for d in range(self.dim)]
         self.ras_masks = (None if ras_masks is None else
                           [np.asarray(r, np.float64) for r in ras_masks])
@@ -189,7 +212,8 @@ class ASMPreconditioner(nn.Module):
             n_d = dofs.nodes_per_dim[d]
             fin, fout = _axis_folds(dofs, weighting_type, d, n_overlap,
                                     patch_type)
-            G = fdm_direction_transform(V, n_d, p, n_overlap, False,
+            per = self.periodic[d]
+            G = fdm_direction_transform(V, n_d, p, n_overlap, per,
                                         patch_type)
             if self.ras_masks is None:
                 Gt = (G * fout[None, :]).T
@@ -197,7 +221,7 @@ class ASMPreconditioner(nn.Module):
                 # the owner's slots only: V_w's row s scaled by mask[w, s]
                 Gt = fdm_direction_transform(
                     V * self.ras_masks[d][:, :, None], n_d, p, n_overlap,
-                    False, patch_type).T
+                    per, patch_type).T
             for name, arr in zip(names, (V, lam, fin, fout, G * fin[None, :],
                                          Gt)):
                 self.register_buffer(f"{name}{d}", self._tensor(arr))
@@ -207,7 +231,8 @@ class ASMPreconditioner(nn.Module):
                for name in names}
         self.tables = FDMTables(per["V"], per["lam"], per["fin"], per["fout"],
                                 per["G"], per["Gt"], self.inv_denom,
-                                tuple(reversed(mesh.n_cells)), p)
+                                tuple(reversed(mesh.n_cells)), p,
+                                self.periodic)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a), dtype=self.dtype,
@@ -325,7 +350,9 @@ class CellASMPreconditioner(nn.Module):
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = dofs.mesh
-        self.m, self.first = window_layout(p, n_overlap, patch_type)
+        self.periodic = tuple(mesh.periodic)
+        self.m, _ = window_layout(p, n_overlap, patch_type)
+        self.first = axis_firsts(p, n_overlap, patch_type, self.periodic)
         if patch_type == "vertex":
             check_has_interior_vertex(mesh, p)
         if collection is None:
@@ -351,7 +378,8 @@ class CellASMPreconditioner(nn.Module):
                 [self._tensor(f[k]) for f in folds]))
         if weighting_type == "ras" and ras_mask is None:
             mx, my, mz = [ras_axis_mask(dofs.free_1d(d), mesh.n_cells[d], p,
-                                        n_overlap, patch_type)
+                                        n_overlap, patch_type,
+                                        self.periodic[d])
                           for d in range(self.dim)]
             m = self.m
             ras_mask = (mz[:, None, None, :, None, None]
@@ -369,12 +397,14 @@ class CellASMPreconditioner(nn.Module):
         """x·w → windows → ⊗Vᵀ → 1/Σλ → ⊗V → (RAS mask) → overlap-add → ·w."""
         x = src.to(self.dtype).reshape(self.grid_shape) * self.fin
         p, m, first = self.degree, self.m, self.first
-        W = grid_to_windows(x, p, m, first).reshape(-1, m, m, m)
+        W = grid_to_windows(x, p, m, first, self.periodic).reshape(
+            -1, m, m, m)
         y = cell_fdm_apply(W, [self.V0, self.V1, self.V2],
                            self.inv_denom).reshape(-1, m ** 3)
         if self.ras_mask is not None:
             y = y * self.ras_mask
-        y = windows_to_grid(y, self.grid_shape, p, m, first) * self.fout
+        y = windows_to_grid(y, self.grid_shape, p, m, first,
+                            self.periodic) * self.fout
         return y.reshape(-1).to(src.dtype)
 
     def forward(self, src):

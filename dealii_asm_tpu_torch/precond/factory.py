@@ -61,10 +61,10 @@ def _try_attach_fused_step(smoother, op, inner, log=_noop_log):
     has no banded tables and no kernel B tables, so it keeps the unfused
     smoother, as does an unstructured level, as in the JAX package; so does
     an overlap > 1, RAS or vertex-patch level, whose windows kernels B, C
-    and D do not tile, and a 2D level (the JAX kernels refuse them,
-    ``smoother_step.py:1085-1089``, ``fdm_slab.py:151-154``)."""
+    and D do not tile, a 2D level and a periodic one (the JAX kernels
+    refuse them, ``smoother_step.py:1085-1089``, ``fdm_slab.py:151-154``)."""
     if (op.device.type != "cuda" or not isinstance(inner, ASMPreconditioner)
-            or not inner.fused or inner.dim != 3
+            or not inner.fused or inner.dim != 3 or any(inner.periodic)
             or not isinstance(op.tables, BandedTables)
             or len(op.tables.grid_shape) != 3):
         return

@@ -250,9 +250,10 @@ class NoVertexPatches(ValueError):
 
 
 def check_has_interior_vertex(mesh, degree: int) -> None:
-    """NoVertexPatches unless every axis of the structured ``mesh`` has two
-    cells or more."""
-    if min(mesh.n_cells) < 2:
+    """NoVertexPatches unless every non-periodic axis of the structured
+    ``mesh`` has two cells or more (a periodic axis has a vertex per cell,
+    its one-cell wrap included)."""
+    if any(n < 2 and not per for n, per in zip(mesh.n_cells, mesh.periodic)):
         raise NoVertexPatches(
             f"{tuple(mesh.n_cells)} cells at degree {degree}: no interior "
             "vertex, so no vertex patch")
@@ -261,18 +262,18 @@ def check_has_interior_vertex(mesh, degree: int) -> None:
 def vertex_percoord_eigendecomposition(mesh, degree: int):
     """Per-coordinate tables [(V_d (W_d, m, m), λ_d (W_d, m))] of vertex
     patches on a uniform Cartesian mesh, m = 2p − 1, one window per
-    interior vertex v = 1 .. n_d − 1 of direction d.  The key of every
+    interior vertex of direction d: W_d = n_d − 1 windows (v = 1 .. n_d −
+    1), or n_d on a periodic axis (v = 0 .. n_d − 1).  The key of every
     window is [h_d, h_d] (the anchor's own and upper extents,
     ``asm.py:231``), so each direction eigendecomposes one pair, as the
-    JAX package's deduplication does.  A mesh with one cell along an axis
-    has no interior vertex: ``NoVertexPatches``."""
+    JAX package's deduplication does.  A mesh with one cell along a
+    non-periodic axis has no interior vertex: ``NoVertexPatches``."""
     check_has_interior_vertex(mesh, degree)
     out = []
     for d in range(mesh.dim):
         h = np.round(float(mesh.h[d]), 12)
         M, K = vertex_patch_1d_matrices_batched(degree, np.array([[h, h]]))
         lam, V = batched_generalized_eigh(K, M)
-        W = mesh.n_cells[d] - 1
+        W = mesh.n_cells[d] - (0 if mesh.periodic[d] else 1)
         out.append((np.repeat(V, W, axis=0), np.repeat(lam, W, axis=0)))
     return out
-

@@ -148,11 +148,21 @@ def test_interop_drives_port_with_jax_tables():
 
 
 def test_unported_meshes_raise():
-    # 2D Cartesian meshes are ported (tests/test_torch_2d.py); periodic
-    # meshes are not
+    # 2D Cartesian meshes are ported (tests/test_torch_2d.py) and so are
+    # periodic ones (tests/test_torch_periodic.py, test_torch_benchmark.py:
+    # here a mesh periodic in x builds and equals the JAX operator); 2D
+    # deformed meshes are not
+    jdofs = JaxDofHandler(JaxMesh(3, (2, 2, 2), periodic=(True, False, False)),
+                          2)
+    op = LaplaceOperator(DofHandler(StructuredMesh(
+        3, (2, 2, 2), periodic=(True, False, False)), 2), device="cpu")
+    x = np.random.default_rng(2).standard_normal(op.n_dofs)
+    ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float64, kernel="banded")
+                     .vmult(jnp.asarray(x)))
+    assert _rel(op.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         LaplaceOperator(DofHandler(StructuredMesh(
-            3, (2, 2, 2), periodic=(True, False, False)), 2))
+            2, (2, 2), transform=lambda p: p), 2), device="cpu")
 
 
 @pytest.mark.parametrize("p", [2, 4])
