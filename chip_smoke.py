@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only 14,15,16   # build + the vertex-patch phases
     python3 chip_smoke.py --only 17,18,19,20   # build + the named inputs
     python3 chip_smoke.py --only 21   # build + the matrix-free-loop driver
+    python3 chip_smoke.py --only 22   # build + the solver breadth phase
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -144,7 +145,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    peak device memory, beside kernels A float32 and B at 64^3 cells Q4 per
    DoF, timed before, between and after the two configs; kernels A to F
    launched 0 times over the phase (kernels refuse periodic meshes, as the
-   JAX kernels do).
+   JAX kernels do);
+22. the solver breadth: (a) the flagship under FCG, FGMRES, BiCGStab, IDR
+   and Richardson and with "mixed precision solve": true (the plain CG, as
+   the JAX run_config reads JSON true), each with A, B and C launched and
+   after its small check at 2 refinements, then mixed-precision
+   refinement (solvers/refinement.py) on the flagship's operators and
+   multigrid; (b) the flagship with bfloat16 levels (A float64 only; any
+   converged count, non-convergence reported); (c) the solver anatomy and
+   transfer bench of models/solver_bench.py at 64^3 cells Q4 (A float32
+   launched); (d) 2D Kershaw (Q3, 7 refinements) and the 2D ball (Q2,
+   Diagonal, 8 refinements), no kernel launched; (e) the matrix-based
+   AdditiveSchwarz (overlap 1 and 2), SubMesh and CG preconditioners at
+   12^3 cells Q4 through run_config and the DomainPreconditioner at 8^3,
+   each count equal to the CPU path's at the same size.
 Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
@@ -233,6 +247,38 @@ JW = {"jw_01": (35_937, 2, 8), "jw_02": (274_625, 1, 8),
 MP_SMALL = {"mp_00": 6, "mp_01": 8, "mp_02": 8, "mp_03": 14, "mp_04": 6,
             "mp_05": 15}
 MP_COMPACT = ("mp_04", "mp_05")  # "operator mapping type": "linear geometry"
+# phase 22: the JAX package's CPU counts of the flagship at 2 refinements
+# (4,913 DoFs) under each new solver and with bfloat16 levels (its
+# run_config on the config with "solver"/"type" or "mg number type" set)
+BREADTH_SMALL = {"FCG": 4, "FGMRES": 4, "Bicgstab": 2, "IDR": 5,
+                 "Richardson": 6}
+BF16_SMALL = 5
+# 2D Kershaw (6^2 base cells: 3 subdivisions, 1 initial refinement) and the
+# 2D ball (12 cells) at the refinement the phase runs; the host setup grows
+# about 4x a refinement (see PERF.md), which sets the largest that stays
+# within a minute
+KERSHAW_2D_R, BALL_2D_R = 7, 8
+_2D_SOLVE = {"type": "CG", "rel tolerance": 1e-5}
+KERSHAW_2D = {
+    "dim": 2, "degree": 3, "mesh": {"name": "kershaw", "eps": 0.3},
+    "solver": dict(_2D_SOLVE), "preconditioner": {
+        "type": "Multigrid", "mg type": "h",
+        "mg smoother": {"type": "Chebyshev", "degree": 2,
+                        "preconditioner": {"type": "FDM"}},
+        "mg coarse grid solver": {"type": "AMG"}}}
+BALL_2D = {"dim": 2, "degree": 2, "mesh": {"name": "hyperball"},
+           "solver": dict(_2D_SOLVE), "preconditioner": {"type": "Diagonal"}}
+# phase 22 (e): the matrix-based family at 12^3 cells Q4
+BLOCK_PROBLEM = {"dim": 3, "degree": 4, "n refinements": 2,
+                 "mesh": {"name": "hypercube", "n subdivisions": 3},
+                 "solver": {"type": "CG", "rel tolerance": 1e-5,
+                            "best of": 3}, "print timing": True}
+BLOCK_CASES = [
+    {"type": "AdditiveSchwarzPreconditioner", "n overlap": 1},
+    {"type": "AdditiveSchwarzPreconditioner", "n overlap": 2},
+    {"type": "SubMeshPreconditioner", "n overlap": 1},
+    {"type": "CGPreconditioner", "n overlap": 1, "n iterations": 2},
+]
 CHAIN_GATE = "DEALII_ASM_TPU_CHAIN_DEGREES"
 SEED = 20261016
 
@@ -1049,12 +1095,23 @@ def check_sweep(cells_list, results):
         torch.cuda.empty_cache()
 
 
-def run_solve(path: str, n_small: int | None, it_small: int | None,
+def deep_update(params: dict, changes: dict) -> dict:
+    """``params`` with ``changes`` merged in, nested sections key by key."""
+    for k, v in changes.items():
+        if isinstance(v, dict) and isinstance(params.get(k), dict):
+            deep_update(params[k], v)
+        else:
+            params[k] = v
+    return params
+
+
+def run_solve(path, n_small: int | None, it_small: int | None,
               it_full: int | None, n_dofs: int, kernels, counts,
               slack: int = 0, check_vcycle: bool = False, record=None,
               absent=(), best_of: int | None = None,
               refinements: int | None = None, precon: dict | None = None,
-              small_mesh: dict | None = None):
+              small_mesh: dict | None = None, derive: dict | None = None,
+              must_converge: bool = True):
     """Phase 4 to 13: one config through run_config on the card, first (with
     ``n_small`` given) at ``n_small`` refinements against the plain CPU
     path, then at full size (the config's "n refinements", or
@@ -1064,7 +1121,10 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     ``kernels``).  ``it_full`` None accepts any converged count; ``best_of``
     overrides the config's, ``precon`` updates its "preconditioner"
     section (a derived config) and ``small_mesh`` the small case's "mesh"
-    section.
+    section; ``derive`` is merged into the whole config, section by section
+    (phase 22), and ``path`` may be a (name, config) pair.  With
+    ``must_converge`` False a full-size solve that does not converge is
+    reported (as the JAX package reports it, 999), not failed.
 
     The small case holds the CPU path to ``it_small`` (the JAX package's
     count), the card's solution to rel-l2 1e-6 of the CPU's, the first 20
@@ -1083,16 +1143,22 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
     from dealii_asm_tpu_torch.models.poisson import run_config
 
-    with open(path) as f:
-        params = json.load(f)
+    if isinstance(path, tuple):
+        name, params = path[0], copy.deepcopy(path[1])
+    else:
+        with open(path) as f:
+            params = json.load(f)
+        name = os.path.basename(path)
     if best_of is not None:
         params["solver"]["best of"] = best_of
     if refinements is not None:
         params["n refinements"] = refinements
-    name = os.path.basename(path)
     if precon:
         params["preconditioner"].update(precon)
         name += f" derived with {json.dumps(precon)}"
+    if derive:
+        deep_update(params, derive)
+        name += f" derived with {json.dumps(derive)}"
     if n_small is not None:
         check_small(params, name, n_small, it_small, slack, small_mesh)
 
@@ -1108,6 +1174,7 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     counts.update({k: got[k] for k in (kernels if record is None
                                        else record)})
     x = res["solution"]
+    n_dofs = n_dofs or res["n_dofs"]
     finite = bool(torch.isfinite(x).all())
     print(f"  {name}: {res['n_dofs']} DoFs, converged={res['converged']}, "
           f"it={res['it']}, setup {res['setup_time']:.3f} s, best-of-"
@@ -1123,7 +1190,11 @@ def run_solve(path: str, n_small: int | None, it_small: int | None,
     if x.shape != (n_dofs,) or x.dtype != torch.float64 or not finite:
         raise Failed(f"{name} solution: shape {tuple(x.shape)}, {x.dtype}, "
                      f"finite={finite}")
-    if not res["converged"] or it_full not in (None, res["it"]):
+    if not must_converge and not res["converged"]:
+        max_it = params["solver"].get("max iterations", 1000)
+        print(f"  {name}: not converged in {max_it} iterations (reported "
+              "as 999)")
+    elif not res["converged"] or it_full not in (None, res["it"]):
         raise Failed(f"{name}: converged={res['converged']}, it={res['it']}, "
                      f"expected {it_full}")
     missing = [k for k in kernels if got[k] <= 0]
@@ -1165,7 +1236,12 @@ def check_small(params: dict, name: str, n_small: int, it_small: int,
     xc = r_cpu["solution"]
     rel = float((xg - xc).norm() / xc.norm())
     n_hist, h_bound = 21, 1e-4
-    gmres = small["solver"].get("type") == "GMRES"
+    solver = small["solver"].get("type")
+    gmres = solver in ("GMRES", "FGMRES")
+    # BiCGStab, IDR and Richardson: each residual carries the float32
+    # V-cycle's rounding (kernels on the card, plain versions on the CPU)
+    # at the scale of the initial residual, so they are compared to it
+    initial = gmres or solver in ("Bicgstab", "IDR", "Richardson")
     if gmres:
         # GMRES's estimates |g_k+1| come from rotations of Hessenberg
         # entries that carry the V-cycle's float32 rounding at the scale of
@@ -1177,14 +1253,15 @@ def check_small(params: dict, name: str, n_small: int, it_small: int,
                                                      30)) - 1)
         h_bound = 1e-6
     hg, hc = r_gpu["residuals"][:n_hist], r_cpu["residuals"][:n_hist]
-    hist = max(abs(a - b) / (hc[0] if gmres else b) for a, b in zip(hg, hc))
+    hist = max(abs(a - b) / (hc[0] if initial else b)
+               for a, b in zip(hg, hc))
     thr = float(small["solver"].get("rel tolerance", 1e-2)) * hc[0]
     last = lambda h: [round(r / thr, 4) for r in h[-2:]]
     print(f"  {name} at {n_small} refinements ({r_gpu['n_dofs']} DoFs): card "
           f"{r_gpu['it']} its, cpu {r_cpu['it']} its (expected {it_small}), "
           f"rel l2 solution difference {rel:.3e} (bound 1e-6), first "
           f"{len(hc) - 1} residuals agree to {hist:.2e} (bound {h_bound:g}"
-          f"{' of the initial residual' if gmres else ''}); last "
+          f"{' of the initial residual' if initial else ''}); last "
           f"residuals / threshold: card {last(r_gpu['residuals'])}, cpu "
           f"{last(r_cpu['residuals'])}")
     if not (r_cpu["converged"] and r_cpu["it"] == it_small
@@ -1285,6 +1362,7 @@ def run_new_paths(counts, phases) -> None:
     run_vertex_paths(counts, phases)
     run_input_paths(counts, phases)
     run_benchmark_paths(phases)
+    run_breadth_paths(counts, phases)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1667,6 +1745,205 @@ def run_benchmark_full(path: str, yard: Yardstick) -> None:
     yard.time()
 
 
+def run_flagship_solvers(counts) -> None:
+    """Phase 22 (a) and (b): the flagship under each new Krylov solver, with
+    "mixed precision solve": true, and with bfloat16 levels, each through
+    run_config after its small check at 2 refinements (the JAX package's
+    CPU counts there, ``BREADTH_SMALL``); then the refinement itself on the
+    flagship's operators and multigrid (``refined_solve``), since the JAX
+    run_config's condition never engages it (JSON true reads "True")."""
+    for solver, it_small in BREADTH_SMALL.items():
+        print(f"== phase 22a: flagship, {solver} on the card")
+        run_solve(FLAGSHIP, 2, it_small, None, 16_974_593, FLAGSHIP_KERNELS,
+                  counts, record=(), absent=LADDER_KERNELS,
+                  slack=1 if solver in ("Bicgstab", "IDR") else 0,
+                  derive={"solver": {"type": solver}},
+                  must_converge=solver != "Richardson")
+    print("== phase 22a: flagship, \"mixed precision solve\": true on the card")
+    res = run_solve(FLAGSHIP, 2, 4, 5, 16_974_593, FLAGSHIP_KERNELS, counts,
+                    record=(), absent=LADDER_KERNELS,
+                    derive={"mixed precision solve": True})
+    run_refinement(res)
+    del res
+    print("== phase 22b: flagship with bfloat16 levels on the card")
+    run_solve(FLAGSHIP, 2, BF16_SMALL, None, 16_974_593,
+              ("banded_laplace_f64",), counts, record=(),
+              absent=("banded_laplace_f32", "fdm_patch", "smoother_step")
+              + LADDER_KERNELS,
+              derive={"mg number type": "bfloat16",
+                      "solver": {"max iterations": 200}},
+              must_converge=False)
+
+
+def run_refinement(res) -> None:
+    """Mixed-precision refinement on the flagship: float64 residuals of the
+    outer operator, float32 CG inner solves on the finest level operator
+    preconditioned by run_config's float32 multigrid, to rel 1e-5; best of
+    3 after a warm-up, beside the plain float64 CG of the same run."""
+    import torch
+
+    from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+    from dealii_asm_tpu_torch.solvers.refinement import refined_solve
+
+    mg = res["preconditioner"].inner
+    op32 = mg.operators[-1]
+    op64 = LaplaceOperator(op32.dofs, dtype=torch.float64, device="cuda")
+    b = op64.assemble_rhs("constant")
+    cycles = []
+    solve = lambda log=lambda *a: None: refined_solve(
+        op64.vmult, op32.vmult, b, mg.vmult, rel_tolerance=1e-5, log=log)
+    reset_launch_counts()
+    r = solve(log=cycles.append)
+    got = launch_counts()
+    best = 999.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = solve()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        if r2.n_iterations != r.n_iterations:
+            raise Failed("refinement: repeated solve took another count")
+    rel = [round(v / r.residuals[0], 10) for v in r.residuals]
+    print(f"  refined_solve on the flagship: converged={r.converged}, "
+          f"{r.n_iterations} inner CG its in {r.outer_cycles} cycles, true "
+          f"residual / initial {rel}, best-of-3 solve {best:.4f} s (plain "
+          f"float64 CG: {res['it']} its, {res['time']:.4f} s)")
+    for line in cycles:
+        print(f"  {line.strip()}")
+    print(f"  launch counts of the refinement: {json.dumps(got)}")
+    if got["banded_laplace_f32"] <= 0 or got["banded_laplace_f64"] <= 0:
+        raise Failed("refinement: kernel A not launched in both precisions")
+    if not bool(torch.isfinite(r.x).all()):
+        raise Failed("refinement: non-finite solution")
+
+
+def run_anatomy() -> None:
+    """Phase 22 (c): the solver anatomy and the transfer bench
+    (``models/solver_bench.py``) at "n subdivision" 36, Q4 (64^3 cells,
+    16,974,593 DoFs, the flagship's size), 20 iterations each; kernel A
+    (float32) launched in the anatomy."""
+    import torch
+
+    from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dealii_asm_tpu_torch.models.solver_bench import (run_solver_anatomy,
+                                                          run_transfer_bench)
+
+    print("== phase 22c: solver anatomy and transfers at 64^3 cells Q4 on "
+          "the card")
+    params = {"n subdivision": 36, "fe degree": 4, "n iterations": 20}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n = run_solver_anatomy(params, device="cuda")
+    got = launch_counts()
+    print(f"  anatomy: {n} DoFs, wall {time.perf_counter() - t0:.3f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launch counts {json.dumps(got)}")
+    if n != 16_974_593 or got["banded_laplace_f32"] <= 0:
+        raise Failed("anatomy: wrong size or kernel A (float32) not launched")
+    run_transfer_bench(params, device="cuda")
+
+
+def run_2d_paths(counts) -> None:
+    """Phase 22 (d): 2D Kershaw (eps 0.3, Q3, h-multigrid, Chebyshev-2
+    around per-cell FDM; 5,313,025 DoFs) and the 2D ball (Q2, CG around
+    Diagonal; 3,147,777 DoFs) through run_config, each after its small
+    check at 2 refinements (the JAX package's counts 26 and 40); no kernel
+    launched (2D runs plain torch, as the JAX package runs XLA there).
+    The host setup grows about 4x a refinement (2D Kershaw 16.7 s at 7
+    refinements, the ball 37.3 s at 8 on the card's host), so one more
+    refinement passes a minute."""
+    print(f"== phase 22d: 2D Kershaw at {KERSHAW_2D_R} refinements on the "
+          "card")
+    run_solve(("2D Kershaw eps 0.3 Q3", KERSHAW_2D), 2, 26, None, None, (),
+              counts, record=(), absent=tuple(KERNELS), slack=1,
+              refinements=KERSHAW_2D_R, best_of=3)
+    print(f"== phase 22d: 2D ball at {BALL_2D_R} refinements on the card")
+    # the Diagonal preconditioner leaves CG's count growing about 2x a
+    # refinement (40 at 2 refinements): the config allows 5000, best of 1
+    run_solve(("2D ball Q2 Diagonal", BALL_2D), 2, 40, None, None, (),
+              counts, record=(), absent=tuple(KERNELS), slack=1,
+              refinements=BALL_2D_R, best_of=1,
+              derive={"solver": {"max iterations": 5000},
+                      "print timing": True})
+
+
+def run_block_paths(counts) -> None:
+    """Phase 22 (e): the matrix-based family on 3D Cartesian 12^3 cells Q4
+    (117,649 DoFs), CG to rel 1e-5: AdditiveSchwarzPreconditioner at
+    overlap 1 and 2, SubMeshPreconditioner and CGPreconditioner (2 block
+    iterations) at overlap 1 through run_config, and the
+    DomainPreconditioner (2 slabs, 1 halo layer; SciPy sparse LU on the
+    host) around CG at 8^3 cells Q4 (35,937 DoFs: the LU of the two
+    61,852-DoF slabs at 12^3 takes about 90 s on the host); each on the
+    card and on the CPU path, the counts equal.  Kernel A (float64, the
+    outer operator) launched; A float32, B, C and D not."""
+    import torch
+
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.models.poisson import run_config
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+    from dealii_asm_tpu_torch.precond.domain import DomainPreconditioner
+    from dealii_asm_tpu_torch.solvers.krylov import solve
+
+    quiet = lambda *a: None
+    absent = ("banded_laplace_f32", "fdm_patch", "smoother_step") \
+        + LADDER_KERNELS
+    for prm in BLOCK_CASES:
+        params = copy.deepcopy(BLOCK_PROBLEM)
+        params["preconditioner"] = dict(prm)
+        print(f"== phase 22e: {json.dumps(prm)} at 12^3 cells Q4")
+        t0 = time.perf_counter()
+        cpu = run_config(copy.deepcopy(params), log=quiet, device="cpu")
+        print(f"  CPU path: {cpu['it']} its, setup {cpu['setup_time']:.3f} s, "
+              f"wall {time.perf_counter() - t0:.3f} s")
+        run_solve((prm["type"], params), None, None, cpu["it"], 117_649,
+                  ("banded_laplace_f64",), counts, record=(), absent=absent)
+    print("== phase 22e: DomainPreconditioner (2 slabs, 1 halo) at 8^3 "
+          "cells Q4")
+    dofs = DofHandler(StructuredMesh(3, (8, 8, 8)), 4)
+    t0 = time.perf_counter()
+    dp = DomainPreconditioner(dofs, n_subdomains=2, n_halo_layers=1)
+    setup = time.perf_counter() - t0
+    its = {}
+    for dev in ("cpu", "cuda"):
+        op = LaplaceOperator(dofs, device=dev)
+        b = op.assemble_rhs("constant")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        best = 999.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve("CG", op.vmult, b, M=dp.vmult, rel_tolerance=1e-5)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        its[dev] = r.n_iterations if r.converged else 999
+        print(f"  {dev}: {its[dev]} its, best-of-3 solve {best:.4f} s, setup "
+              f"(host sparse LU) {setup:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launch "
+              f"counts {json.dumps(launch_counts())}")
+    if (its["cpu"] != its["cuda"] or its["cpu"] == 999
+            or launch_counts()["banded_laplace_f64"] <= 0):
+        raise Failed(f"DomainPreconditioner: card {its['cuda']} its, CPU "
+                     f"{its['cpu']}")
+
+
+def run_breadth_paths(counts, phases) -> None:
+    """Phase 22 (if named in ``phases``): (a)-(e) above."""
+    if 22 not in phases:
+        return
+    run_flagship_solvers(counts)
+    run_anatomy()
+    run_2d_paths(counts)
+    run_block_paths(counts)
+
+
 def run_benchmark_paths(phases) -> None:
     """Phase 21 (if named in ``phases``): the matrix-free-loop driver
     (``models/benchmark.py``) on periodic meshes.  The card against the
@@ -1781,7 +2058,7 @@ def main(argv=None) -> int:
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
             run_ladder(counts)
-            run_new_paths(counts, range(9, 22))
+            run_new_paths(counts, range(9, 23))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -17,6 +17,9 @@ OUTER_DTYPE = torch.float64
 LEVEL_DTYPE = torch.float32
 # every entry point runs on the card unless the caller asks for the CPU
 DEFAULT_DEVICE = "cuda"
+# the dtypes the CUDA kernels are instantiated for; a bfloat16 level runs
+# plain torch, as the JAX package runs XLA where its kernels need float32
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 def apply_precision_policy() -> None:

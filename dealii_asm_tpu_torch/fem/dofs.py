@@ -60,6 +60,29 @@ class DofHandler:
             coords = np.asarray(self.mesh.transform(coords))
         return coords
 
+    @property
+    def dofs_per_cell(self) -> int:
+        return (self.degree + 1) ** self.mesh.dim
+
+    @cached_property
+    def cell_dofs(self) -> np.ndarray:
+        """(C, (p+1)^dim) int32 global node ids of each cell's lattice, local
+        lexicographic (x fastest), wrapped on a periodic axis
+        (``dealii_asm_tpu/fem/dofs.py:46-72``)."""
+        p, dim, N = self.degree, self.mesh.dim, self.nodes_per_dim
+        mi = self.mesh.cell_multi_index()
+        strides = np.cumprod([1] + list(N[:-1]))
+        n1 = p + 1
+        out = np.zeros((mi.shape[0], n1 ** dim), dtype=np.int64)
+        for d in range(dim):
+            local = mi[:, d, None] * p + np.arange(n1)[None, :]
+            if self.mesh.periodic[d]:
+                local = local % N[d]
+            sel = np.tile(np.repeat(np.arange(n1), n1 ** d),
+                          n1 ** (dim - 1 - d))
+            out += local[:, sel] * strides[d]
+        return out.astype(np.int32)
+
     @cached_property
     def boundary_mask(self) -> np.ndarray:
         """(n_dofs,) bool: True on a non-periodic domain boundary."""

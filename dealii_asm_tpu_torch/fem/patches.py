@@ -6,7 +6,10 @@ Carried over from ``dealii_asm_tpu/fem/patches.py``:
   at overlap o, starting at node c·p − (o − 1) along each axis;
 - ``vertex_patch_indices`` (:111): the (2p − 1)^dim interior nodes of the
   2^dim cells around each interior vertex, starting at node v·p − (p − 1)
-  for vertex v (the anchor cell v − 1 is the lower-left cell of the star).
+  for vertex v (the anchor cell v − 1 is the lower-left cell of the star);
+- ``vertex_all_patch_indices`` (:67): all (2p + 1)^dim nodes of those
+  cells, starting at node v·p − p (the matrix-based "vertex_all"
+  restriction).
 
 On a periodic axis (N = p·C nodes) node ids wrap modulo N and every vertex
 is interior: C windows per axis, vertex 0 first (``:80-160``).  A 1-cell
@@ -89,5 +92,21 @@ def vertex_patch_indices(dofs) -> tuple[np.ndarray, np.ndarray]:
     per_dim = [(verts[:, d, None].astype(np.int64) * p + offsets[None, :])
                % N[d] for d in range(mesh.dim)]
     strides = np.cumprod([1] + list(dofs.nodes_per_dim[:-1]))
+    idx = _tensor_table(per_dim, strides, m)
+    return idx.astype(np.int32), vertex_anchors(mesh).astype(np.int32)
+
+
+def vertex_all_patch_indices(dofs) -> tuple[np.ndarray, np.ndarray]:
+    """(idx (P, (2p + 1)^dim) int32, anchors (P,) int32): every DoF of the
+    2^dim cells around each interior vertex, and its anchor cell."""
+    mesh = dofs.mesh
+    p = dofs.degree
+    m = 2 * p + 1
+    verts = interior_vertices(mesh)
+    offsets = np.arange(m) - p
+    N = dofs.nodes_per_dim
+    per_dim = [(verts[:, d, None].astype(np.int64) * p + offsets[None, :])
+               % N[d] for d in range(mesh.dim)]
+    strides = np.cumprod([1] + list(N[:-1]))
     idx = _tensor_table(per_dim, strides, m)
     return idx.astype(np.int32), vertex_anchors(mesh).astype(np.int32)

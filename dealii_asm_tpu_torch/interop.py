@@ -20,18 +20,21 @@ from .mesh.grid import StructuredMesh
 from .mesh.unstructured import BallChart, UnstructuredMesh
 from .ops.laplace import LaplaceOperator
 from .ops.laplace_general import GeneralLaplaceOperator
-from .ops.tensorops import SYM_PAIRS
+from .ops.tensorops import sym_pairs
 from .ops.transfer import TwoLevelTransfer
 from .ops.transfer_general import GeneralTwoLevelTransfer
 from .precond.asm import ASMPreconditioner, CellASMPreconditioner
 from .precond.asm_general import GeneralASMPreconditioner
+from .precond.block_asm import (BlockCG, BlockInverse,
+                                RestrictedPreconditioner, Restrictor)
 from .precond.fdm import FDMCollection
 from .solvers.chebyshev import (ChebyshevPreconditioner, EigenvalueInfo,
                                 RelaxationPreconditioner)
 
-# the JAX package's order of the six symmetric coefficient components
-# (``_SYM_PAIRS``, ``ops/laplace_general.py:36-37``)
-JAX_SYM_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+# the JAX package's order of the symmetric coefficient components of its
+# general operator (``_SYM_PAIRS``, ``ops/laplace_general.py:36-37``)
+JAX_SYM_PAIRS = {2: ((0, 0), (0, 1), (1, 1)),
+                 3: ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))}
 
 
 def dofs_from_jax(dofs) -> DofHandler:
@@ -84,15 +87,18 @@ def general_dofs_from_jax(dofs) -> GeneralDofHandler:
 
 def coeff6_from_jax(op) -> np.ndarray:
     """(C, 6, Q) coefficients in the port's order [xx, yy, zz, xy, xz, yz]
-    from a JAX ``GeneralLaplaceOperator``: its lane-major ``coeff6`` (six
-    (q, q, q, C) arrays in the JAX order) or its (C, Q, 3, 3) ``coeff``."""
+    ((C, 3, Q) as [xx, yy, xy] in 2D) from a JAX ``GeneralLaplaceOperator``:
+    its lane-major ``coeff6`` (six (q, q, q, C) arrays, three (q, q, C) in
+    2D, in the JAX order) or its (C, Q, dim, dim) ``coeff``."""
+    pairs = sym_pairs(op.dim)
     if op.coeff6 is not None:
         comps = [np.asarray(c, np.float64) for c in op.coeff6]
         C = comps[0].shape[-1]
-        return np.stack([comps[JAX_SYM_PAIRS.index(pair)].reshape(-1, C).T
-                         for pair in SYM_PAIRS], axis=1)
+        order = JAX_SYM_PAIRS[op.dim]
+        return np.stack([comps[order.index(pair)].reshape(-1, C).T
+                         for pair in pairs], axis=1)
     coeff = np.asarray(op.coeff, np.float64)
-    return np.stack([coeff[:, :, a, b] for a, b in SYM_PAIRS], axis=1)
+    return np.stack([coeff[:, :, a, b] for a, b in pairs], axis=1)
 
 
 def general_laplace_from_jax(op, dtype=torch.float64,
@@ -217,3 +223,42 @@ def relaxation_from_jax(rel, A, M, n_dofs: int,
     return RelaxationPreconditioner(
         A, M, n_dofs, n_iterations=rel.n_iterations, omega=float(rel.omega),
         eigenvalues=_eigenvalues_from_jax(rel.eigenvalues), device=device)
+
+
+def restrictor_from_jax(r) -> Restrictor:
+    """The port's ``Restrictor`` holding a JAX ``Restrictor``'s index table
+    (pad index n) and inverse multiplicities, on the port's DoF handler."""
+    out = Restrictor.__new__(Restrictor)
+    out.dofs = dofs_from_jax(r.dofs)
+    out.weighting_type = r.weighting_type
+    out.restriction_type = r.restriction_type
+    out.indices = np.asarray(r.indices)
+    out.inv_multiplicity = np.asarray(r.inv_multiplicity, np.float64)
+    return out
+
+
+def block_preconditioner_from_jax(prec, dtype=torch.float64,
+                                  device=DEFAULT_DEVICE
+                                  ) -> RestrictedPreconditioner:
+    """Port ``RestrictedPreconditioner`` from a JAX one whose solver is a
+    ``BlockInverse`` (its inverted blocks) or a ``BlockCG`` (its blocks,
+    iteration count and inverse-block preconditioner)."""
+    s = prec.solver
+    if hasattr(s, "inv"):
+        solver = BlockInverse(None, dtype, device,
+                              inverse=np.array(s.inv, np.float64))
+    else:
+        inner = (None if s.precon is None else
+                 BlockInverse(None, dtype, device,
+                              inverse=np.array(s.precon.inv, np.float64)))
+        solver = BlockCG(np.array(s.A, np.float64), precon=inner,
+                         n_iterations=s.n_iterations, dtype=dtype,
+                         device=device)
+    return RestrictedPreconditioner(solver, restrictor_from_jax(
+        prec.restrictor), dtype, device)
+
+
+def domain_partition_from_jax(dp) -> list:
+    """The global DoF ids of each subdomain of a JAX
+    ``DomainPreconditioner`` (ascending, free DoFs only), as NumPy."""
+    return [np.asarray(ids) for ids, _solve in dp.blocks]

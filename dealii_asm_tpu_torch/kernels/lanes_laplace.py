@@ -114,8 +114,23 @@ def sumfac_integrate(tx: torch.Tensor, ty: torch.Tensor, tz: torch.Tensor,
 def sumfac_cell_apply(W: torch.Tensor, coeff: torch.Tensor,
                       shape: torch.Tensor) -> torch.Tensor:
     """Local cell integrals (∇̂⊗N̂)ᵀ C_c (∇̂⊗N̂) W_c of W (C, m, m, m) as
-    [z, y, x] with ``coeff`` (C, 6, Q) and ``shape`` (4, m, m)."""
+    [z, y, x] with ``coeff`` (C, 6, Q) and ``shape`` (4, m, m); in 2D W
+    (C, m, m) as [y, x] with ``coeff`` (C, 3, Q) as [xx, yy, xy]
+    (``laplace_general.py:229-236``)."""
     m = shape.shape[1]
+    if W.ndim == 3:
+        N, D = shape[0], shape[1]
+        a = torch.einsum("cyx,qx->cyq", W, N)
+        dx = torch.einsum("cyx,qx->cyq", W, D)
+        gy = torch.einsum("cyq,ry->crq", a, D)
+        gx = torch.einsum("cyq,ry->crq", dx, N)
+        cxx, cyy, cxy = coeff.reshape(-1, 3, m, m).unbind(1)
+        tx = cxx * gx + cxy * gy
+        ty = cxy * gx + cyy * gy
+        v = torch.einsum("crq,ry->cyq", ty, D)
+        w = torch.einsum("crq,ry->cyq", tx, N)
+        return (torch.einsum("cyq,qx->cyx", v, N)
+                + torch.einsum("cyq,qx->cyx", w, D))
     gx, gy, gz = sumfac_gradients(W, shape)
     cxx, cyy, czz, cxy, cxz, cyz = coeff.reshape(-1, 6, m, m, m).unbind(1)
     tx = cxx * gx + cxy * gy + cxz * gz

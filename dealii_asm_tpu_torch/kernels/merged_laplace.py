@@ -107,13 +107,14 @@ class MergedTables:
     """Tables of one deformed operator, on its device and in its dtype.
 
     ``coeff``: cell-major (C, 6, Q) symmetric coefficients [xx, yy, zz, xy,
-    xz, yz] in box coordinates, quadrature points x fastest;
+    xz, yz] in box coordinates, quadrature points x fastest ((C, 3, Q),
+    [xx, yy, xy], on a 2D mesh, which only the plain version takes);
     ``shape``: (4, m, m) = N, D/h_x, D/h_y, D/h_z as [quadrature point,
-    node]; ``shape_host``: the same values on the host, which the kernel
-    launch copies into its parameters; ``Ev``/``Ed``: per-direction global
-    value/derivative matrices (C_d·m, N_d) of the plain version; ``free``:
-    the (Nz, Ny, Nx) bool mask of unconstrained nodes (the kernel tests
-    lattice coordinates)."""
+    node] ((3, m, m) in 2D); ``shape_host``: the same values on the host,
+    which the kernel launch copies into its parameters; ``Ev``/``Ed``:
+    per-direction global value/derivative matrices (C_d·m, N_d) of the
+    plain version; ``free``: the ([Nz,] Ny, Nx) bool mask of unconstrained
+    nodes (the kernel tests lattice coordinates)."""
 
     coeff: torch.Tensor
     shape: torch.Tensor
@@ -121,12 +122,13 @@ class MergedTables:
     Ev: list
     Ed: list
     p: int
-    cells: tuple  # (Cz, Cy, Cx)
+    cells: tuple  # ([Cz,] Cy, Cx)
     free: torch.Tensor
 
     def __post_init__(self):
-        check_shape_host(self.shape_host, self.p, self.coeff.dtype,
-                         "MergedTables")
+        if len(self.cells) == 3:
+            check_shape_host(self.shape_host, self.p, self.coeff.dtype,
+                             "MergedTables")
 
     @property
     def grid_shape(self) -> tuple:
@@ -155,9 +157,9 @@ def merged_laplace(u: torch.Tensor, t: MergedTables,
         return merged_laplace_plain(u, t, rhs)
     if u.device.type != "cuda":
         raise TypeError(f"merged_laplace: unsupported device {u.device}")
-    if t.periodic:
-        raise ValueError("merged_laplace: the kernel does not take periodic "
-                         "meshes")
+    if t.periodic or len(t.cells) != 3:
+        raise ValueError("merged_laplace: the kernel takes non-periodic 3D "
+                         "meshes only")
     nz, ny, nx = t.grid_shape
     _check_vec(u, "u", t.coeff, nz * ny * nx)
     if rhs is not None:

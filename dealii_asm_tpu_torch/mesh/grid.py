@@ -179,3 +179,24 @@ class StructuredMesh:
         q, _ = gauss_points(n_q_1d)
         s = np.linalg.svd(self.jacobians(1, q), compute_uv=False)
         return float((s[..., 0] / s[..., -1]).max())
+
+
+def patch_submesh(mesh: StructuredMesh, cell_id: int) -> tuple:
+    """(submesh, lower) of the 3^dim surrounding-cell patch of ``cell_id``:
+    an offset ``StructuredMesh`` with the same transform, and per axis 1
+    where the lower neighbour exists (``dealii_asm_tpu/mesh/grid.py:299-
+    323``; a periodic axis always has both neighbours)."""
+    mi = mesh.cell_multi_index()[cell_id]
+    h = mesh.h
+    lo, n_sub = [], []
+    for d in range(mesh.dim):
+        has_l = mesh.periodic[d] or mi[d] > 0
+        has_r = mesh.periodic[d] or mi[d] < mesh.n_cells[d] - 1
+        lo.append(1 if has_l else 0)
+        n_sub.append(1 + int(has_l) + int(has_r))
+    origin = tuple(mesh.origin[d] + (mi[d] - lo[d]) * h[d]
+                   for d in range(mesh.dim))
+    lengths = tuple(n_sub[d] * h[d] for d in range(mesh.dim))
+    sub = StructuredMesh(mesh.dim, tuple(n_sub), lengths=lengths,
+                         origin=origin, transform=mesh.transform)
+    return sub, tuple(lo)

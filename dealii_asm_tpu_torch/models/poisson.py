@@ -2,11 +2,14 @@
 
 Counterpart of ``dealii_asm_tpu/models/poisson.py::run_config`` for the
 structured families ``hypercube``, ``symmetric hypercube``, ``anisotropy``
-(2D and 3D) and the deformed ``kershaw``/``kershaw-mp`` (3D), and the
-unstructured ``hyperball`` (3D), on one device: mesh → float64 operator
-(the "operator mapping type" selects a compact geometry form for it) →
-multigrid (h, p, hp or ph levels, float32 by default) behind a precision
-adapter → CG or GMRES with deal.II's ReductionControl.
+and the deformed ``kershaw``/``kershaw-mp``, and the unstructured
+``hyperball``, in 2D and 3D, on one device: mesh → float64 operator (the
+"operator mapping type" selects a compact geometry form for it) →
+multigrid (h, p, hp or ph levels; float32 by default, float64 or bfloat16
+on request) behind a precision adapter, or a single-level preconditioner
+→ CG, FCG, GMRES, FGMRES, BiCGStab, IDR or Richardson with deal.II's
+ReductionControl, or mixed-precision iterative refinement
+(``"mixed precision solve"``, ``solvers/refinement.py``).
 
 The right-hand side ("rhs") comes with its Dirichlet data g: the port
 solves deal.II's homogeneous system (the lift in the free rows, b = 0 at
@@ -41,14 +44,16 @@ from ..precond.adapter import PrecisionAdapter
 from ..precond.factory import create_system_preconditioner
 from ..precond.fdm import NoVertexPatches
 from ..precond.multigrid import Multigrid
+from ..solvers.krylov import cg, gmres
 from ..solvers.krylov import solve as krylov_solve
+from ..solvers.refinement import refined_solve
 from ..utils.config import get_child, get_param
 from ..utils.table import ConvergenceTable
 
 # "mg number type" (top-level key, as in the JAX run_config): "" means the outer
 # type; a missing key means the policy's level type
 _LEVEL_DTYPES = {"": OUTER_DTYPE, "float64": torch.float64,
-                 "float32": torch.float32}
+                 "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -169,9 +174,6 @@ def make_mesh_family(params: dict, log=lambda *_: None) -> MeshFamily:
         return MeshFamily(dim, (ns,) * dim, n_refine, (2.0,) * dim, name,
                           origin=(-1.0,) * dim)
     if name == "hyperball":
-        if dim != 3:
-            raise NotImplementedError(
-                f"dim {dim}: the port runs 3D meshes only (ROADMAP item 9)")
         log("- Create mesh: hyperball\n")
         return GeneralMeshFamily(dim, hyper_ball_balanced(dim), n_refine,
                                  name)
@@ -280,11 +282,22 @@ def _check_unported_options(params: dict, device: torch.device) -> None:
     if get_param(params, "do output", False):
         raise NotImplementedError("'do output' is not ported yet "
                                   "(ROADMAP item 12)")
-    # "auto" engages refinement only for n_dofs > 2M with <= 80 nodes per
-    # direction, which no 3D mesh satisfies
-    if get_param(params, "mixed precision solve", "auto") is True:
-        raise NotImplementedError(
-            "mixed-precision refinement is not ported yet (ROADMAP item 11c)")
+
+
+def _use_refinement(params: dict, mg_inner, solver_type: str, n_dofs: int,
+                    dim: int) -> bool:
+    """The JAX ``run_config``'s condition as written (``poisson.py:516-
+    521``): a float-level multigrid (one device), CG or GMRES, and "mixed
+    precision solve" identical to True, or "auto" (the default) with more
+    than 2M DoFs and at most 80 nodes per direction (n^(1/dim); the outer
+    solve is float64).  ``get_param`` with the default "auto" reads JSON
+    true as the string "True", so only "auto" engages it, as in the JAX
+    package; no 2D or 3D mesh meets its size test."""
+    mp_solve = get_param(params, "mixed precision solve", "auto")
+    return (mg_inner is not None and solver_type in ("CG", "GMRES")
+            and (mp_solve is True
+                 or (mp_solve == "auto" and n_dofs > 2_000_000
+                     and n_dofs ** (1.0 / dim) <= 80.0)))
 
 
 def run_config(params: dict, table: ConvergenceTable | None = None,
@@ -300,6 +313,9 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     fe_degree = int(get_param(params, "degree", 1))
     family = make_mesh_family(params, log)
     mesh = family.fine_mesh
+    if family.dim == 2:
+        # the JAX kernels are 3D only, so its 2D paths run XLA
+        log(" - 2D mesh: plain torch (kernels A-F take 3D meshes)")
     dofs = family.dofs_at(family.n_refinements, fe_degree)
     # the compact geometry forms serve the outer operator only; the levels
     # keep the merged coefficients, as in the JAX package (``poisson.py:345``)
@@ -316,18 +332,24 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     table.add_value("n_dofs", dofs.n_dofs)
 
     precon_p = get_child(params, "preconditioner")
+    mg_inner = None  # the float-level multigrid before its adapter
     if precon_p.get("type", "") == "Multigrid":
         log("- Create system preconditioner: Multigrid")
         # float MG levels under a float64 outer Krylov, as the reference
         level_name = params.get("mg number type")
         if level_name is not None and level_name not in _LEVEL_DTYPES:
-            raise NotImplementedError(
-                f"mg number type {level_name!r} is not ported yet "
-                "(ROADMAP item 9)")
+            raise ValueError(f"mg number type <{level_name}> is not known!")
         level_dtype = _LEVEL_DTYPES.get(level_name, LEVEL_DTYPE)
+        if level_dtype == torch.bfloat16:
+            # the JAX kernels all require float32 (``factory.py:69``,
+            # ``asm.py:550``, ``laplace.py:252``), so bfloat16 levels run
+            # XLA there; the CUDA kernels are float and double templates
+            log(" - bfloat16 levels: plain torch (kernels A-F take float32 "
+                "and float64 only)")
         precon = _build_multigrid(precon_p, family, fe_degree, log,
                                   level_dtype, device)
         if level_dtype != dtype:
+            mg_inner = precon
             precon = PrecisionAdapter(precon, level_dtype)
     else:
         precon = create_system_preconditioner(op, precon_p, log)
@@ -354,10 +376,27 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         if mtv > 0:
             kwargs["restart"] = mtv - 2
 
-    def dispatch():
-        return krylov_solve(solver_type, op.vmult, b, M=precon.vmult,
-                            max_iterations=max_it, abs_tolerance=abs_tol,
-                            rel_tolerance=rel_tol, **kwargs)
+    if _use_refinement(params, mg_inner, solver_type, dofs.n_dofs,
+                       family.dim):
+        # the inner operator: the outer one built at the level precision
+        # (``poisson.py:516-541``); its solve runs on float32 vectors
+        op_level = family.operator(dofs, level_dtype, device)
+        M_level = (mg_inner.vmult if level_dtype == torch.float32 else
+                   PrecisionAdapter(mg_inner, level_dtype).vmult)
+        inner_solver = cg if solver_type == "CG" else gmres
+        inner_red = float(get_param(solver_p, "inner reduction", 3e-4))
+        log("   - mixed-precision refinement (f32 inner, f64 residuals)")
+
+        def dispatch():
+            return refined_solve(
+                op.vmult, op_level.vmult, b, M_level, rel_tolerance=rel_tol,
+                abs_tolerance=abs_tol, inner_reduction=inner_red,
+                inner_solver=inner_solver, log=log)
+    else:
+        def dispatch():
+            return krylov_solve(solver_type, op.vmult, b, M=precon.vmult,
+                                max_iterations=max_it, abs_tolerance=abs_tol,
+                                rel_tolerance=rel_tol, **kwargs)
 
     synchronize(device)
     setup_time = time.perf_counter() - t_setup

@@ -12,17 +12,20 @@ node lattice.  The geometry decides the form, as in the JAX package:
 - a deformed mesh (``mesh.transform`` set; ``laplace.py:323-417``): the
   merged form, the symmetric w|J|J⁻¹J⁻ᵀ per quadrature point of an
   isoparametric Q_m mapping, applied by kernel E
-  (``kernels/merged_laplace.py``), or by the plain merged form on a
+  (``kernels/merged_laplace.py``) in 3D, or by the plain merged form
+  (three coefficients [xx, yy, xy] per quadrature point in 2D) on a 2D or
   periodic mesh, which kernel E refuses as the JAX one does
-  (``merged_vmult.py:344``);
+  (``merged_vmult.py:344``, ``laplace.py:395``);
 - a deformed mesh with a compact ``mapping_type`` ("linear geometry",
   "quadratic geometry", "construct q"; ``laplace.py:122-133, 280-320,
   515-540``): per-cell mapping support points (or stored quadrature points)
   with the Jacobians rebuilt at every quadrature point in each apply.  The
   JAX package runs these in XLA, never in a Pallas kernel, so they are plain
   torch here, on every device.
-Kernels A and E run in float32 or native float64.  Constrained (Dirichlet)
-rows act as identity: ``vmult(u)`` is ``where(free, A·where(free, u, 0), u)``.
+Kernels A and E run in float32 or native float64; bfloat16 levels take the
+plain forms (every JAX kernel gate requires float32, ``laplace.py:252``).
+Constrained (Dirichlet) rows act as identity: ``vmult(u)`` is
+``where(free, A·where(free, u, 0), u)``.
 A fully periodic box has no constrained row; its operator is singular, the
 constants its null space, as in the JAX package.
 
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, KERNEL_DTYPES, resolve_device
 from ..fem.functions import constant_rhs, dirichlet_values, make_rhs_and_dbc
 from ..fem.lagrange import (gauss_lobatto_points, lagrange_derivatives,
                             lagrange_values, shape_1d, tensor_gradient,
@@ -62,14 +65,10 @@ COMPACT_MAPPING_TYPES = {"linear geometry": "linear",
 
 def check_structured(dofs) -> None:
     """The port's structured operators cover 2D and 3D meshes, periodic or
-    not, deformed ones in 3D."""
-    mesh = dofs.mesh
-    if mesh.dim not in (2, 3):
-        raise NotImplementedError(
-            f"dim {mesh.dim}: the port runs 2D and 3D meshes (ROADMAP item 9)")
-    if mesh.dim == 2 and mesh.transform is not None:
-        raise NotImplementedError(
-            "deformed 2D meshes are not ported yet (ROADMAP item 9)")
+    not, Cartesian or deformed."""
+    if dofs.mesh.dim not in (2, 3):
+        raise ValueError(f"dim {dofs.mesh.dim}: the operators take 2D and "
+                         "3D meshes")
 
 
 class LaplaceOperator(nn.Module):
@@ -137,11 +136,15 @@ class LaplaceOperator(nn.Module):
             [getattr(self, f"Kdiag{d}") for d in range(self.dim)],
             self.degree, self.grid_shape, self.free, tuple(offsets),
             self.periodic)
-        # kernel A tiles non-periodic 3D grids; a 2D or periodic grid takes
-        # the plain banded form, as the JAX kernels refuse them
-        self._kernel = (banded_laplace
-                        if self.dim == 3 and not any(self.periodic)
+        # kernel A tiles non-periodic 3D grids in float32 or float64; a 2D
+        # or periodic grid or a bfloat16 level takes the plain banded form,
+        # as the JAX kernels refuse them
+        self._kernel = (banded_laplace if self._kernel_eligible()
                         else banded_laplace_plain)
+
+    def _kernel_eligible(self) -> bool:
+        return (self.dim == 3 and not any(self.periodic)
+                and self.dtype in KERNEL_DTYPES)
 
     def _init_merged(self, mapping_degree, geometry):
         mesh, p = self.dofs.mesh, self.degree
@@ -176,9 +179,10 @@ class LaplaceOperator(nn.Module):
             [getattr(self, f"Ev{d}") for d in range(self.dim)],
             [getattr(self, f"Ed{d}") for d in range(self.dim)],
             p, tuple(reversed(mesh.n_cells)), self.free)
-        # kernel E's cells own non-periodic lattices
-        self._kernel = (merged_laplace_plain if any(self.periodic)
-                        else merged_laplace)
+        # kernel E's cells own non-periodic 3D lattices; a 2D mesh reaches
+        # no Pallas kernel in the JAX package either (``laplace.py:395``)
+        self._kernel = (merged_laplace if self._kernel_eligible()
+                        else merged_laplace_plain)
 
     def _init_compact(self, mapping_degree):
         """Compact geometry (``laplace.py:280-320``): the linear and

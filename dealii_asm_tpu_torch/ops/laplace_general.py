@@ -5,10 +5,15 @@ GeneralLaplaceOperator`` (the hyperball family): gather the cell DoFs
 through the orientation-baked ``cell_dofs`` table, sum-factorised reference
 gradients, the merged symmetric coefficient w_q·|J|·J⁻¹J⁻ᵀ per quadrature
 point, transposed integration, scatter-add.  The apply is kernel F
-(``kernels/lanes_laplace.py``) in float32 or native float64; the JAX
-package's double-single outer matvec and its lane-major layouts are TPU
-workarounds the port does not need.  Constrained (Dirichlet) rows act as
-identity: ``vmult(u)`` is ``where(free, A·where(free, u, 0), u)``.
+(``kernels/lanes_laplace.py``) in float32 or native float64 on 3D meshes;
+the JAX package's double-single outer matvec and its lane-major layouts
+are TPU workarounds the port does not need.  A 2D mesh (three coefficients
+[xx, yy, xy] a quadrature point) and bfloat16 levels reach no Pallas
+kernel in the JAX package (``laplace_general.py:137``, a 3D float kernel),
+so they take the plain form here on every device: the same gather and
+sum factorisation with a fixed-order scatter (``FixedOrderSum``).
+Constrained (Dirichlet) rows act as identity: ``vmult(u)`` is
+``where(free, A·where(free, u, 0), u)``.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, KERNEL_DTYPES, resolve_device
 from ..fem.functions import constant_rhs, dirichlet_values, make_rhs_and_dbc
 from ..fem.lagrange import shape_1d, tensor_gradient, tensor_values
 from ..kernels.lanes_laplace import (lanes_laplace, lanes_tables,
@@ -37,17 +42,15 @@ class GeneralLaplaceOperator(nn.Module):
     """Laplace operator on a ``fem.general_dofs.GeneralDofHandler``.
 
     ``geometry`` (optional): the NumPy pair (coeff6 (C, 6, Q) as [xx, yy,
-    zz, xy, xz, yz], jxw (C, Q)) instead of computing it here; ``interop.py``
-    passes the JAX package's tables through it.
+    zz, xy, xz, yz], (C, 3, Q) as [xx, yy, xy] in 2D, jxw (C, Q)) instead
+    of computing it here; ``interop.py`` passes the JAX package's tables
+    through it.
     """
 
     def __init__(self, dofs, dtype=torch.float64, device=DEFAULT_DEVICE,
                  mapping_degree=None, geometry=None):
         super().__init__()
         mesh = dofs.mesh
-        if mesh.dim != 3:
-            raise NotImplementedError(
-                f"dim {mesh.dim}: the port runs 3D meshes only (ROADMAP item 9)")
         self.dofs = dofs
         self.degree = p = dofs.degree
         self.dim = mesh.dim
@@ -59,7 +62,8 @@ class GeneralLaplaceOperator(nn.Module):
         if geometry is None:
             geo = compute_geometry(mesh, p + 1, self.mapping_degree,
                                    self.device)
-            coeff6, self.jxw = pack_merged_coeff(geo.coeff, (1.0,) * 3), geo.jxw
+            coeff6 = pack_merged_coeff(geo.coeff, (1.0,) * self.dim)
+            self.jxw = geo.jxw
             del geo
         else:
             coeff6, self.jxw = (torch.tensor(np.asarray(a, np.float64),
@@ -74,18 +78,43 @@ class GeneralLaplaceOperator(nn.Module):
         self.register_buffer("shape_tabs", shape_host.to(self.device))
         self.tables = lanes_tables(dofs.cell_dofs, dofs.boundary_mask,
                                    self.coeff6, self.shape_tabs, shape_host, p)
+        # kernel F: 3D cells in float32 or float64, as the JAX kernel; the
+        # plain form keeps its fixed-order sum, kernel F's operators build
+        # one for each setup call and drop it (its tables are O(C·m³))
+        if self.dim == 3 and dtype in KERNEL_DTYPES:
+            self._kernel, self._plain_sum = lanes_laplace, None
+        else:
+            self._kernel = self._plain_apply
+            self._plain_sum = FixedOrderSum(self.tables.cell_dofs,
+                                            self.n_dofs)
+
+    def _scatter(self, values: torch.Tensor) -> torch.Tensor:
+        """Σ of the (C, m^dim) cell values into the DoFs, in a fixed
+        order."""
+        fixed = self._plain_sum or FixedOrderSum(self.tables.cell_dofs,
+                                                 self.n_dofs)
+        return fixed(values)
+
+    def _plain_apply(self, u: torch.Tensor, tables=None,
+                     rhs: torch.Tensor | None = None) -> torch.Tensor:
+        """vmult (or rhs − vmult) in plain torch with the fixed-order
+        scatter, for 2D meshes and bfloat16 levels."""
+        zero = torch.zeros((), dtype=u.dtype, device=u.device)
+        v = self.unconstrained_apply(torch.where(self.tables.free, u, zero))
+        v = torch.where(self.tables.free, v, u)
+        return v if rhs is None else rhs - v
 
     def vmult(self, u: torch.Tensor) -> torch.Tensor:
         """A·u in the operator's dtype; another input dtype is cast in and
         out (the Lanczos estimate drives float32 levels with float64
         vectors)."""
         if u.dtype == self.dtype:
-            return lanes_laplace(u, self.tables)
-        return lanes_laplace(u.to(self.dtype), self.tables).to(u.dtype)
+            return self._kernel(u, self.tables)
+        return self._kernel(u.to(self.dtype), self.tables).to(u.dtype)
 
     def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """b − A·x in one kernel call."""
-        return lanes_laplace(x, self.tables, rhs=b)
+        return self._kernel(x, self.tables, rhs=b)
 
     def forward(self, u):
         return self.vmult(u)
@@ -97,7 +126,7 @@ class GeneralLaplaceOperator(nn.Module):
         order (``FixedOrderSum``), so repeats are bit-identical."""
         s = shape_1d(self.degree, self.degree + 1)
         local = cell_diagonal(self.coeff6, tensor_gradient(s.N, s.D, self.dim))
-        diag = FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(local)
+        diag = self._scatter(local)
         one = torch.ones((), dtype=self.dtype, device=self.device)
         return 1.0 / torch.where(self.tables.free, diag, one)
 
@@ -112,10 +141,9 @@ class GeneralLaplaceOperator(nn.Module):
         torch): the cell integrals of u summed into the DoFs in a fixed
         order (``laplace_general.py:459-470``)."""
         m = self.degree + 1
-        W = u[self.tables.cell_dofs].reshape(-1, m, m, m)
+        W = u[self.tables.cell_dofs].reshape((-1,) + (m,) * self.dim)
         local = sumfac_cell_apply(W, self.coeff6, self.shape_tabs)
-        return FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(
-            local.reshape(W.shape[0], -1))
+        return self._scatter(local.reshape(W.shape[0], -1))
 
     def assemble_rhs(self, f="constant", dirichlet=None) -> torch.Tensor:
         """b_i = ∫ f φ_i − (A g)_i on free DoFs, 0 on constrained ones
@@ -136,7 +164,7 @@ class GeneralLaplaceOperator(nn.Module):
             fq = f(qp.reshape(-1, self.dim))
             jxw = jxw * torch.as_tensor(np.asarray(fq, np.float64),
                                         device=self.device).reshape(jxw.shape)
-        b = FixedOrderSum(self.tables.cell_dofs, self.n_dofs)(jxw @ Nval)
+        b = self._scatter(jxw @ Nval)
         g = None if dirichlet is None else self.dirichlet_vector(dirichlet)
         if g is not None:
             b = b - self.unconstrained_apply(g.to(self.dtype)).to(b.dtype)

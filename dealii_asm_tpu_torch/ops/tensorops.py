@@ -96,45 +96,68 @@ def interp_direction_transform(B: np.ndarray, n_nodes: int, degree: int,
     return E
 
 
-# symmetric coefficient components, packed [xx, yy, zz, xy, xz, yz]
+# symmetric coefficient components, packed [xx, yy, zz, xy, xz, yz] in 3D
+# and [xx, yy, xy] in 2D (``dealii_asm_tpu/ops/laplace.py:365-366``)
 SYM_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+SYM_PAIRS_2D = ((0, 0), (1, 1), (0, 1))
+
+
+def sym_pairs(dim: int) -> tuple:
+    return SYM_PAIRS if dim == 3 else SYM_PAIRS_2D
 
 
 def pack_merged_coeff(coeff: torch.Tensor, h) -> torch.Tensor:
-    """(C, Q, 3, 3) reference-gradient coefficient → cell-major (C, 6, Q)
-    in box coordinates, C_box[a, b] = h_a·C_ref[a, b]·h_b (the global
-    derivative matrices differentiate in box coordinates, ∂ξ = h·∂box;
-    ``dealii_asm_tpu/ops/laplace.py:353-370``)."""
+    """(C, Q, dim, dim) reference-gradient coefficient → cell-major (C, 6,
+    Q) in 3D, (C, 3, Q) in 2D, in box coordinates, C_box[a, b] =
+    h_a·C_ref[a, b]·h_b (the global derivative matrices differentiate in
+    box coordinates, ∂ξ = h·∂box; ``dealii_asm_tpu/ops/laplace.py:353-
+    370``)."""
     return torch.stack([coeff[:, :, a, b] * float(h[a] * h[b])
-                        for a, b in SYM_PAIRS], dim=1)
+                        for a, b in sym_pairs(coeff.shape[-1])], dim=1)
 
 
 def cell_diagonal(coeff6: torch.Tensor, grad: np.ndarray) -> torch.Tensor:
     """(C, L) diagonal of each cell matrix, Σ_q Σ_ab C_ab(q) ∂_a φ_l ∂_b φ_l,
-    in the six-pair form over the packed coefficients (C, 6, Q) (pairs off
-    the diagonal count twice); ``grad`` (Q, L, 3) holds the basis gradients
-    in the coefficients' coordinates (``laplace_general.py:418-440``)."""
-    C, six, Q = coeff6.shape
+    in the pair form over the packed coefficients (C, 6 or 3, Q) (pairs off
+    the diagonal count twice); ``grad`` (Q, L, dim) holds the basis
+    gradients in the coefficients' coordinates
+    (``laplace_general.py:418-440``)."""
+    C, n_sym, Q = coeff6.shape
     BB = np.stack([grad[:, :, a] * grad[:, :, b] * (1.0 if a == b else 2.0)
-                   for a, b in SYM_PAIRS])  # (6, Q, L)
-    BB = torch.as_tensor(BB.reshape(six * Q, -1), dtype=coeff6.dtype,
+                   for a, b in sym_pairs(grad.shape[2])])  # (n_sym, Q, L)
+    BB = torch.as_tensor(BB.reshape(n_sym * Q, -1), dtype=coeff6.dtype,
                          device=coeff6.device)
-    return coeff6.reshape(C, six * Q) @ BB
+    return coeff6.reshape(C, n_sym * Q) @ BB
 
 
 def merged_coeff_qgrid(coeff6: torch.Tensor, cells_zyx: tuple, qn: int):
     """Cell-major (C, 6, Q) → six (Cz·q, Cy·q, Cx·q) q-grids (the JAX
-    package's ``coeff6`` layout)."""
+    package's ``coeff6`` layout); in 2D (C, 3, Q) → three (Cy·q, Cx·q)."""
+    if len(cells_zyx) == 2:
+        cy, cx = cells_zyx
+        g = coeff6.reshape(cy, cx, 3, qn, qn).permute(2, 0, 3, 1, 4)
+        return list(g.reshape(3, cy * qn, cx * qn))
     cz, cy, cx = cells_zyx
     g = coeff6.reshape(cz, cy, cx, 6, qn, qn, qn).permute(3, 0, 4, 1, 5, 2, 6)
     return list(g.reshape(6, cz * qn, cy * qn, cx * qn))
 
 
 def merged_laplace_apply(u_grid, Ev, Ed, coeff6):
-    """Deformed-geometry Laplace apply as q-space axis products (3D):
+    """Deformed-geometry Laplace apply as q-space axis products:
     g = (∇̂⊗N̂) u, t = C g, v = (∇̂⊗N̂)ᵀ t.  Ev/Ed: per-direction global
     value/derivative matrices (x first); coeff6: six q-grids
-    [xx, yy, zz, xy, xz, yz] (``dealii_asm_tpu/ops/tensorops.py:190-226``)."""
+    [xx, yy, zz, xy, xz, yz] in 3D, three [xx, yy, xy] in 2D
+    (``dealii_asm_tpu/ops/tensorops.py:190-226``)."""
+    if u_grid.ndim == 2:
+        a = axis_matmul(u_grid, Ev[0], 1)
+        d1 = axis_matmul(u_grid, Ed[0], 1)
+        gy = axis_matmul(a, Ed[1], 0)
+        gx = axis_matmul(d1, Ev[1], 0)
+        cxx, cyy, cxy = coeff6
+        tx = cxx * gx + cxy * gy
+        ty = cxy * gx + cyy * gy
+        v = axis_matmul(axis_matmul(ty, Ed[1].T, 0), Ev[0].T, 1)
+        return v + axis_matmul(axis_matmul(tx, Ev[1].T, 0), Ed[0].T, 1)
     a = axis_matmul(u_grid, Ev[0], 2)    # x values
     d1 = axis_matmul(u_grid, Ed[0], 2)   # x derivatives
     b = axis_matmul(a, Ev[1], 1)
@@ -194,7 +217,12 @@ def banded_axis_apply(t: torch.Tensor, diags: torch.Tensor, grid_axis: int,
     holds the diagonal at ``offsets[k]`` (default −b..b).  A non-periodic
     axis pads with zeros, a periodic one by wrapping, which with the
     aliased offsets 0..N−1 of a short periodic axis (``banded_offsets``)
-    counts every column once (``dealii_asm_tpu/ops/tensorops.py:270-300``)."""
+    counts every column once (``dealii_asm_tpu/ops/tensorops.py:270-300``).
+    A bfloat16 axis sums its band in float32 and rounds once, as a dot does
+    (XLA's bfloat16 dot in the JAX package's dense axis products)."""
+    if t.dtype == torch.bfloat16:
+        return banded_axis_apply(t.float(), diags.float(), grid_axis, offsets,
+                                 periodic).to(torch.bfloat16)
     nd = t.ndim
     if offsets is None:
         b = (diags.shape[0] - 1) // 2

@@ -56,12 +56,8 @@ class GeneralTwoLevelTransfer(nn.Module):
     def __init__(self, coarse, fine, dtype=torch.float64,
                  device=DEFAULT_DEVICE, T1=None):
         super().__init__()
-        if coarse.mesh.dim != 3:
-            raise NotImplementedError(
-                f"dim {coarse.mesh.dim}: the port runs 3D meshes only "
-                "(ROADMAP item 9)")
         self.coarse, self.fine = coarse, fine
-        self.dim = 3
+        self.dim = coarse.mesh.dim
         self.dtype = dtype
         self.device = resolve_device(device)
         pc, pf = coarse.degree, fine.degree
@@ -101,8 +97,13 @@ class GeneralTwoLevelTransfer(nn.Module):
         self._to_coarse = FixedOrderSum(self.coarse_cd, self.n_coarse)
 
     def _tensor_apply(self, u: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-        """(C, n_in^3) → (C, n_out^3): T (n_out, n_in) along z, y, x."""
+        """(C, n_in^dim) → (C, n_out^dim): T (n_out, n_in) along [z,] y,
+        x."""
         n = T.shape[1]
+        if self.dim == 2:
+            u = torch.einsum("cyx,Yy->cYx", u.reshape(-1, n, n), T)
+            u = torch.einsum("cyx,Xx->cyX", u, T)
+            return u.reshape(u.shape[0], -1)
         u = u.reshape(-1, n, n, n)
         u = torch.einsum("czyx,Zz->cZyx", u, T)
         u = torch.einsum("czyx,Yy->czYx", u, T)

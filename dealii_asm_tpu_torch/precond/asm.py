@@ -47,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, KERNEL_DTYPES, resolve_device
 from ..fem.patches import vertex_anchors
 from ..kernels.fdm_patch import FDMTables, fdm_patch, fdm_patch_plain
 from ..ops.laplace import check_structured
@@ -160,7 +160,8 @@ class ASMPreconditioner(nn.Module):
     (W_d, m) RAS masks; by default both are built here (``interop.py`` passes the JAX
     ones).  ``fused`` says whether the apply is kernel B, and the level may
     take the fused smoother kernels C and D: element patches of overlap 1
-    with a multiplicity weighting, on a non-periodic 3D mesh.
+    with a multiplicity weighting, on a non-periodic 3D mesh, in float32 or
+    float64.
     """
 
     is_symmetric = True
@@ -187,7 +188,7 @@ class ASMPreconditioner(nn.Module):
         self.periodic = tuple(dofs.mesh.periodic)
         self.fused = (patch_type == "element" and n_overlap == 1
                       and weighting_type != "ras" and self.dim == 3
-                      and not any(self.periodic))
+                      and not any(self.periodic) and dtype in KERNEL_DTYPES)
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = dofs.mesh
@@ -213,14 +214,19 @@ class ASMPreconditioner(nn.Module):
             fin, fout = _axis_folds(dofs, weighting_type, d, n_overlap,
                                     patch_type)
             per = self.periodic[d]
-            G = fdm_direction_transform(V, n_d, p, n_overlap, per,
+            # a bfloat16 level folds the weights into V as held in
+            # bfloat16, as the JAX package builds G from its stored
+            # ``percoord``; the bfloat16 rounding of V decides the result
+            Vl = (self._tensor(V).double().cpu().numpy()
+                  if self.dtype == torch.bfloat16 else V)
+            G = fdm_direction_transform(Vl, n_d, p, n_overlap, per,
                                         patch_type)
             if self.ras_masks is None:
                 Gt = (G * fout[None, :]).T
             else:
                 # the owner's slots only: V_w's row s scaled by mask[w, s]
                 Gt = fdm_direction_transform(
-                    V * self.ras_masks[d][:, :, None], n_d, p, n_overlap,
+                    Vl * self.ras_masks[d][:, :, None], n_d, p, n_overlap,
                     per, patch_type).T
             for name, arr in zip(names, (V, lam, fin, fout, G * fin[None, :],
                                          Gt)):
@@ -248,7 +254,23 @@ class ASMPreconditioner(nn.Module):
         apply = fdm_patch if self.fused else fdm_patch_plain
         if src.dtype == self.dtype:
             return apply(src, self.tables)
+        if self.dtype == torch.bfloat16:
+            # the JAX package's einsums promote: a wider vector (the
+            # eigenvalue estimate's float64 Lanczos vectors) meets the
+            # bfloat16 tables in its own dtype
+            return fdm_patch_plain(src, self._widened(src.dtype))
         return apply(src.to(self.dtype), self.tables).to(src.dtype)
+
+    def _widened(self, dtype) -> FDMTables:
+        """The plain form's tables cast to ``dtype`` (built once)."""
+        if getattr(self, "_wide", None) is None or \
+                self._wide.inv_denom.dtype != dtype:
+            t = self.tables
+            self._wide = FDMTables(
+                t.V, t.lam, t.fin, t.fout, [g.to(dtype) for g in t.G],
+                [g.to(dtype) for g in t.Gt], t.inv_denom.to(dtype), t.cells,
+                t.p, t.periodic)
+        return self._wide
 
     def forward(self, src):
         return self.vmult(src)
@@ -296,23 +318,67 @@ def vertex_fdm_collection(extents: np.ndarray, degree: int) -> FDMCollection:
 
 def cell_fdm_tables(collection: FDMCollection, dtype, device):
     """Per-patch tables of a deduplicated collection on ``device``: V[d]
-    (P, m, m) per direction (x first) and inv_denom (P, m, m, m), the
-    reciprocal eigenvalue sums, all in ``dtype``."""
+    (P, m, m) per direction (x first) and denom (P, m, m, m) ((P, m, m) in
+    2D), the eigenvalue sums λ_z + λ_y + λ_x added slowest direction first
+    (the JAX package's ``fdm_apply_lanes`` order), all in ``dtype``."""
     ids = np.asarray(collection.ids)
     V, lams = [], []
     for d in range(ids.shape[1]):
         for tabs, out in ((collection.eigvecs, V), (collection.eigvals, lams)):
             out.append(torch.tensor(np.asarray(tabs[d], np.float64)[ids[:, d]],
                                     dtype=dtype, device=device))
+    if len(lams) == 2:
+        lx, ly = lams
+        return V, ly[:, :, None] + lx[:, None, :]
     lx, ly, lz = lams
-    return V, 1.0 / (lz[:, :, None, None] + ly[:, None, :, None]
-                     + lx[:, None, None, :])
+    return V, (lz[:, :, None, None] + ly[:, None, :, None]
+               + lx[:, None, None, :])
 
 
-def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor):
-    """Batched tensor-product patch inverses: u (P, m, m, m) as [z, y, x],
-    V[d] (P, m, m) as [node, mode] per direction (x first), inv_denom
-    (P, m, m, m) the reciprocal eigenvalue sums."""
+def _unrolled_axis(u: torch.Tensor, V: torch.Tensor, axis: int,
+                   to_modes: bool) -> torch.Tensor:
+    """One direction of the per-patch transform as the JAX package's
+    ``_axis_apply_lanes`` computes it: m² broadcast multiply-adds, summed
+    in slot order, each rounded to u's dtype.  ``axis`` counts the local
+    axes (0 slowest); V (P, m, m) as [node, mode]."""
+    u = torch.movedim(u, axis + 1, 1)
+    m = V.shape[1]
+    shape = (V.shape[0],) + (1,) * (u.ndim - 2)
+    outs = []
+    for i in range(m):
+        acc = None
+        for j in range(m):
+            c = (V[:, j, i] if to_modes else V[:, i, j]).reshape(shape)
+            t = u[:, j] * c
+            acc = t if acc is None else acc + t
+        outs.append(acc)
+    return torch.movedim(torch.stack(outs, 1), 1, axis + 1)
+
+
+def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor = None,
+                   denom: torch.Tensor = None):
+    """Batched tensor-product patch inverses: u (P, m, m, m) as [z, y, x]
+    ((P, m, m) as [y, x] in 2D), V[d] (P, m, m) as [node, mode] per
+    direction (x first), inv_denom the reciprocal eigenvalue sums, shaped
+    as u.  Given ``denom`` (a bfloat16 level) instead, the apply runs as the
+    JAX package's lanes form, whose rounding points decide a bfloat16
+    result: each direction's multiply-adds unrolled, slowest direction
+    first, and a division by the eigenvalue sums."""
+    if denom is not None:
+        dim = len(V)
+        for a in range(dim):
+            u = _unrolled_axis(u, V[dim - 1 - a], a, to_modes=True)
+        u = u / denom
+        for a in range(dim):
+            u = _unrolled_axis(u, V[dim - 1 - a], a, to_modes=False)
+        return u
+    if len(V) == 2:
+        Vx, Vy = V
+        u = torch.einsum("cyx,cxk->cyk", u, Vx)
+        u = torch.einsum("cyx,cyk->ckx", u, Vy)
+        u = u * inv_denom
+        u = torch.einsum("cyk,cxk->cyx", u, Vx)
+        return torch.einsum("ckx,cyk->cyx", u, Vy)
     Vx, Vy, Vz = V
     u = torch.einsum("czyx,cxk->czyk", u, Vx)
     u = torch.einsum("czyx,cyk->czkx", u, Vy)
@@ -321,6 +387,52 @@ def cell_fdm_apply(u: torch.Tensor, V: list, inv_denom: torch.Tensor):
     u = torch.einsum("czyk,cxk->czyx", u, Vx)
     u = torch.einsum("czkx,cyk->czyx", u, Vy)
     return torch.einsum("ckyx,czk->czyx", u, Vz)
+
+
+def _window_mask_product(masks: list) -> np.ndarray:
+    """(P, m^dim) RAS mask of the windows from the per-axis (window, slot)
+    masks (x first): window and slot both run z slowest, x fastest."""
+    if len(masks) == 2:
+        mx, my = masks
+        prod = my[:, None, :, None] * mx[None, :, None, :]
+    else:
+        mx, my, mz = masks
+        prod = (mz[:, None, None, :, None, None]
+                * my[None, :, None, None, :, None]
+                * mx[None, None, :, None, None, :])
+    return prod.reshape(-1, masks[0].shape[1] ** len(masks))
+
+
+def register_patch_tables(module: nn.Module, collection: FDMCollection):
+    """V0..V{dim−1} and the eigenvalue sums of ``cell_fdm_tables`` as
+    buffers of ``module`` in its dtype: ``inv_denom`` (the reciprocal), or
+    ``denom`` itself on a bfloat16 level (see ``cell_fdm_apply``)."""
+    V, denom = cell_fdm_tables(collection, module.dtype, module.device)
+    for d, Vd in enumerate(V):
+        module.register_buffer(f"V{d}", Vd)
+    if module.dtype == torch.bfloat16:
+        module.register_buffer("denom", denom)
+    else:
+        module.register_buffer("inv_denom", 1.0 / denom)
+
+
+def work_dtype(dtype, src: torch.Tensor):
+    """The dtype a per-patch FDM apply computes in: its own, except that a
+    bfloat16 level meets a wider vector (the eigenvalue estimate's float64
+    Lanczos vectors) in the vector's dtype, as the JAX package's einsums
+    promote."""
+    if dtype == torch.bfloat16 and src.dtype in KERNEL_DTYPES:
+        return src.dtype
+    return dtype
+
+
+def patch_apply(module: nn.Module, W: torch.Tensor, dtype) -> torch.Tensor:
+    """``cell_fdm_apply`` with ``module``'s tables (``register_patch_tables``)
+    in ``dtype``."""
+    V = [getattr(module, f"V{d}").to(dtype) for d in range(module.dim)]
+    if module.dtype == torch.bfloat16:
+        return cell_fdm_apply(W, V, denom=module.denom.to(dtype))
+    return cell_fdm_apply(W, V, module.inv_denom)
 
 
 class CellASMPreconditioner(nn.Module):
@@ -367,24 +479,17 @@ class CellASMPreconditioner(nn.Module):
                     extents, nbr[:, :, 0] >= 0, nbr[:, :, 1] >= 0, p,
                     n_overlap)
         self.collection = collection
-        V, inv_denom = cell_fdm_tables(collection, dtype, self.device)
-        for d, Vd in enumerate(V):
-            self.register_buffer(f"V{d}", Vd)
-        self.register_buffer("inv_denom", inv_denom)
+        register_patch_tables(self, collection)
         folds = [_axis_folds(dofs, weighting_type, d, n_overlap, patch_type)
                  for d in range(self.dim)]
         for k, name in enumerate(("fin", "fout")):
             self.register_buffer(name, outer_grid(
                 [self._tensor(f[k]) for f in folds]))
         if weighting_type == "ras" and ras_mask is None:
-            mx, my, mz = [ras_axis_mask(dofs.free_1d(d), mesh.n_cells[d], p,
-                                        n_overlap, patch_type,
-                                        self.periodic[d])
-                          for d in range(self.dim)]
-            m = self.m
-            ras_mask = (mz[:, None, None, :, None, None]
-                        * my[None, :, None, None, :, None]
-                        * mx[None, None, :, None, None, :]).reshape(-1, m ** 3)
+            masks = [ras_axis_mask(dofs.free_1d(d), mesh.n_cells[d], p,
+                                   n_overlap, patch_type, self.periodic[d])
+                     for d in range(self.dim)]
+            ras_mask = _window_mask_product(masks)
         self.ras_mask = (None if ras_mask is None
                          else self._tensor(ras_mask))
         self.grid_shape = tuple(reversed(dofs.nodes_per_dim))
@@ -395,16 +500,16 @@ class CellASMPreconditioner(nn.Module):
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """x·w → windows → ⊗Vᵀ → 1/Σλ → ⊗V → (RAS mask) → overlap-add → ·w."""
-        x = src.to(self.dtype).reshape(self.grid_shape) * self.fin
-        p, m, first = self.degree, self.m, self.first
+        dt = work_dtype(self.dtype, src)
+        x = src.to(dt).reshape(self.grid_shape) * self.fin.to(dt)
+        p, m, first, dim = self.degree, self.m, self.first, self.dim
         W = grid_to_windows(x, p, m, first, self.periodic).reshape(
-            -1, m, m, m)
-        y = cell_fdm_apply(W, [self.V0, self.V1, self.V2],
-                           self.inv_denom).reshape(-1, m ** 3)
+            (-1,) + (m,) * dim)
+        y = patch_apply(self, W, dt).reshape(-1, m ** dim)
         if self.ras_mask is not None:
-            y = y * self.ras_mask
+            y = y * self.ras_mask.to(dt)
         y = windows_to_grid(y, self.grid_shape, p, m, first,
-                            self.periodic) * self.fout
+                            self.periodic) * self.fout.to(dt)
         return y.reshape(-1).to(src.dtype)
 
     def forward(self, src):

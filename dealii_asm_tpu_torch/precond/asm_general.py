@@ -35,9 +35,9 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.general_patches import (general_element_patch_indices,
                                    general_vertex_patch_indices)
 from ..ops.fixed_sum import FixedOrderSum
-from .asm import (_check_options, cell_fdm_apply, cell_fdm_tables,
-                  element_fdm_collection, ras_ownership,
-                  vertex_fdm_collection)
+from .asm import (_check_options, element_fdm_collection, patch_apply,
+                  ras_ownership, register_patch_tables,
+                  vertex_fdm_collection, work_dtype)
 from .fdm import NoVertexPatches
 
 
@@ -58,10 +58,8 @@ class GeneralASMPreconditioner(nn.Module):
                  patch_type: str = "element", ras_mask=None):
         super().__init__()
         mesh = dofs.mesh
-        if mesh.dim != 3:
-            raise NotImplementedError(
-                f"dim {mesh.dim}: the port runs 3D meshes only (ROADMAP item 9)")
         self.dofs = dofs
+        self.dim = mesh.dim
         self.degree = p = dofs.degree
         n_overlap = min(n_overlap, p)
         _check_options(weighting_type, n_overlap, p, patch_type)
@@ -94,10 +92,7 @@ class GeneralASMPreconditioner(nn.Module):
                     nbr[:, 1::2] >= 0, p, n_overlap)
         idx = idx.astype(np.int64)
         self.collection = collection
-        V, inv_denom = cell_fdm_tables(collection, dtype, self.device)
-        for d, Vd in enumerate(V):
-            self.register_buffer(f"V{d}", Vd)
-        self.register_buffer("inv_denom", inv_denom)
+        register_patch_tables(self, collection)
 
         counts = np.bincount(idx.reshape(-1), minlength=n + 1)[:n].astype(
             np.float64)
@@ -116,18 +111,20 @@ class GeneralASMPreconditioner(nn.Module):
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """x·w → gather → ⊗Vᵀ → 1/Σλ → ⊗V → (RAS mask) → scatter-add → ·w."""
-        x = src.to(self.dtype)
+        dt = work_dtype(self.dtype, src)
+        x = src.to(dt)
+        w = self.weights.to(dt)
         if self.weighting_type in ("pre", "symm"):
-            x = x * self.weights
+            x = x * w
         xpad = torch.cat([x, x.new_zeros(1)])
-        m = self.m
-        W = xpad[self.patch_idx].reshape(-1, m, m, m)
-        y = cell_fdm_apply(W, [self.V0, self.V1, self.V2], self.inv_denom)
+        m, dim = self.m, self.dim
+        W = xpad[self.patch_idx].reshape((-1,) + (m,) * dim)
+        y = patch_apply(self, W, dt)
         if self.ras_mask is not None:
-            y = y.reshape(self.ras_mask.shape) * self.ras_mask
+            y = y.reshape(self.ras_mask.shape) * self.ras_mask.to(dt)
         dst = self._scatter(y)
         if self.weighting_type in ("post", "symm"):
-            dst = dst * self.weights
+            dst = dst * w
         return dst.to(src.dtype)
 
     def forward(self, src):

@@ -4,15 +4,16 @@ Counterpart of ``dealii_asm_tpu/precond/factory.py``: Identity, Diagonal,
 FDM (element patches of overlap 1..p or vertex-star patches, any weighting,
 RAS included; per-coordinate tables on Cartesian meshes, per-patch tables
 on deformed and unstructured ones), AMG (the dense direct coarse solve),
-CoarseCG (diagonal-preconditioned CG to a reduction), Relaxation and
-Chebyshev, with the reference's defaults.  On CUDA, every Relaxation or
+CoarseCG (diagonal-preconditioned CG to a reduction), the matrix-based
+AdditiveSchwarzPreconditioner, SubMeshPreconditioner and CGPreconditioner
+(``precond/block_asm.py``), Relaxation and Chebyshev, with the reference's
+defaults.  On CUDA, every Relaxation or
 Chebyshev level around an element-patch overlap-1 Cartesian FDM
 preconditioner with a multiplicity weighting gets the fused smoother step
 (kernel C), and, when
 its degree is named in ``DEALII_ASM_TPU_CHAIN_DEGREES`` (none by default, as
 in the JAX package), the fused sweep (kernel D); there is no size gate and
-no fallback.  Other types and options raise NotImplementedError naming
-their ROADMAP item.
+no fallback.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..solvers.chebyshev import (ChebyshevPreconditioner,
 from ..utils.config import get_child, get_param
 from .asm import ASMPreconditioner, CellASMPreconditioner
 from .asm_general import GeneralASMPreconditioner
+from .block_asm import create_block_preconditioner
 from .diagonal import DiagonalPreconditioner
 from .multigrid import DirectCoarseSolver, IterativeCoarseSolver
 
@@ -169,8 +171,7 @@ def create_system_preconditioner(op, params: dict, log=_noop_log):
 
     if ptype in ("AdditiveSchwarzPreconditioner", "SubMeshPreconditioner",
                  "CGPreconditioner"):
-        raise NotImplementedError(
-            f"preconditioner {ptype!r} is not ported yet (ROADMAP item 11c)")
+        return create_block_preconditioner(op, params, log)
     raise ValueError(f"Preconditioner <{ptype}> is not known!")
 
 

@@ -1,6 +1,7 @@
 """Measurements of the port's solve on one GPU.
 
     python -m dealii_asm_tpu_torch.probe profile CONFIG.json [--refinements N]
+                                                 [--solver TYPE]
     python -m dealii_asm_tpu_torch.probe sensitivity CONFIG.json --refinements N
     python -m dealii_asm_tpu_torch.probe setup CONFIG.json [--refinements N]
     python -m dealii_asm_tpu_torch.probe ladder [SPEC ...] [--best-of N]
@@ -14,7 +15,8 @@ union of the kernels' intervals, and the number of device operations
 kernels (one line per instantiation) with its launches and device ms.  The
 warm-up solve runs under ``torch.cuda.set_sync_debug_mode("warn")``, which
 warns once per call that waits for the device: their count over the
-iterations is the host syncs per iteration.
+iterations is the host syncs per iteration.  ``--solver`` replaces the
+config's "solver"/"type" (FCG, FGMRES, Bicgstab, IDR, Richardson, ...).
 
 ``sensitivity``: the iteration count, the last residuals over the
 stopping threshold and the levels' Lanczos estimates of the largest
@@ -75,11 +77,14 @@ def _quiet(*_):
     pass
 
 
-def _load(path: str, refinements: int | None) -> dict:
+def _load(path: str, refinements: int | None,
+          solver: str | None = None) -> dict:
     with open(path) as f:
         params = json.load(f)
     if refinements is not None:
         params["n refinements"] = refinements
+    if solver is not None:
+        params.setdefault("solver", {})["type"] = solver
     params["print timing"] = True
     params.setdefault("solver", {})["best of"] = 1
     return params
@@ -330,6 +335,7 @@ def main(argv=None) -> int:
         sp = sub.add_parser(what)
         sp.add_argument("config")
         sp.add_argument("--refinements", type=int, default=None)
+        sp.add_argument("--solver", default=None)
     lp = sub.add_parser("ladder")
     lp.add_argument("specs", nargs="*",
                     default=["fdm1:0-7", "diag:7", "fdm2:7", "fdmv:7"])
@@ -349,7 +355,7 @@ def main(argv=None) -> int:
     if args.what == "ladder":
         ladder(args.specs, args.best_of, args.device)
         return 0
-    params = _load(args.config, args.refinements)
+    params = _load(args.config, args.refinements, args.solver)
     {"profile": profile, "sensitivity": sensitivity,
      "setup": setup}[args.what](params)
     return 0

@@ -76,6 +76,16 @@ def estimate_eigenvalues(A, n_dofs: int, M=None, constrained_mask=None,
     return EigenvalueInfo(lam, 1.2 * lam, result.n_iterations)
 
 
+def _scalar(c: float, like: torch.Tensor) -> float:
+    """``c`` as the JAX package's weakly typed Python scalar meets a vector
+    like ``like``: rounded to the vector's dtype first.  Torch keeps a Python
+    scalar in float32 for a bfloat16 op, so a bfloat16 level rounds it here;
+    float32 and float64 need nothing."""
+    if like.dtype == torch.bfloat16:
+        return float(torch.tensor(c, dtype=torch.bfloat16))
+    return c
+
+
 def chebyshev_sweep_coefficients(degree, theta, delta, polynomial_type,
                                  lam_max=None):
     """(f1_s, f2_s) rows of the two-term recurrence
@@ -140,37 +150,39 @@ class ChebyshevPreconditioner:
 
     def _first_kind(self, x, b, zero_guess=False):
         theta, delta = self.theta, self.delta
+        c = lambda v: _scalar(v, b)
         if zero_guess:
-            p = self.M(b) * (1.0 / theta)  # x = 0: the residual is b
+            p = self.M(b) * c(1.0 / theta)  # x = 0: the residual is b
             x = p
         else:
             if self.degree == 1 and self.fused_step is not None:
                 return self.fused_step(x, b, 1.0 / theta)
             r = b - self.A(x)
-            p = self.M(r) * (1.0 / theta)
+            p = self.M(r) * c(1.0 / theta)
             x = x + p
         rhok = delta / theta
         for _ in range(1, self.degree):
             r = b - self.A(x)
             rhokp = 1.0 / (2.0 * theta / delta - rhok)
-            p = (rhokp * rhok) * p + (2.0 * rhokp / delta) * self.M(r)
+            p = c(rhokp * rhok) * p + c(2.0 * rhokp / delta) * self.M(r)
             x = x + p
             rhok = rhokp
         return x
 
     def _fourth_kind(self, x, b, zero_guess=False):
         lam = self.beta_range
+        c = lambda v: _scalar(v, b)
         if zero_guess:
-            d = self.M(b) * (4.0 / (3.0 * lam))
+            d = self.M(b) * c(4.0 / (3.0 * lam))
         elif self.degree == 1 and self.fused_step is not None:
             return self.fused_step(x, b, 4.0 / (3.0 * lam))
         else:
             r = b - self.A(x)
-            d = self.M(r) * (4.0 / (3.0 * lam))
+            d = self.M(r) * c(4.0 / (3.0 * lam))
         for k in range(1, self.degree):
             x = x + d
             r = b - self.A(x)
-            d = d * ((2.0 * k - 1.0) / (2.0 * k + 3.0)) + self.M(r) * (
+            d = d * c((2.0 * k - 1.0) / (2.0 * k + 3.0)) + self.M(r) * c(
                 (8.0 * k + 4.0) / ((2.0 * k + 3.0) * lam))
         return x + d
 
@@ -232,19 +244,19 @@ class RelaxationPreconditioner:
             if self.fused_step is not None:
                 x = self.fused_step(x, b, self.omega)
             else:
-                x = x + self.omega * self.M(b - self.A(x))
+                x = x + _scalar(self.omega, b) * self.M(b - self.A(x))
         return x
 
     def vmult(self, b):
         if self.fused_sweep_zero is not None:
             return self.fused_sweep_zero(b)
         # zero initial guess: the first step is ω·M(b), with no operator
-        x = self.omega * self.M(b)
+        x = _scalar(self.omega, b) * self.M(b)
         for _ in range(1, self.n_iterations):
             if self.fused_step is not None:
                 x = self.fused_step(x, b, self.omega)
             else:
-                x = x + self.omega * self.M(b - self.A(x))
+                x = x + _scalar(self.omega, b) * self.M(b - self.A(x))
         return x
 
     def __call__(self, b):

@@ -1,16 +1,20 @@
-"""CG and GMRES with deal.II iteration semantics (PyTorch).
+"""Krylov solvers with deal.II iteration semantics (PyTorch).
 
 Counterpart of ``dealii_asm_tpu/solvers/krylov.py``: ``ReductionControl``
 (:39; success when value <= tolerance or value < reduce·initial, checked at
-step 0 on the initial residual), ``IterationNumberControl``, ``cg`` (:432,
-the host loop, monitoring the unpreconditioned ‖r‖ and optionally returning
-the CG-Lanczos tridiagonal eigenvalues, with the stall guard of :482-503),
-``_lanczos_eigenvalues`` (:532), ``gmres`` (:739, restarted, Givens QR,
-right preconditioning by default; the math of ``_gmres_device`` :595),
-``solve`` (:1061) for CG and GMRES, and ``cg_traceable`` (:1073), the
-coarse solver's CG to a fixed reduction.  Dot products of sub-float64
-vectors accumulate in float64.  The JAX package's double-single outer loop
-is not ported: the outer matvec is native float64.
+step 0 on the initial residual), ``IterationNumberControl`` (:57), ``cg``
+(:432, the host loop, monitoring the unpreconditioned ‖r‖ and optionally
+returning the CG-Lanczos tridiagonal eigenvalues, with the stall guard of
+:482-503), ``_lanczos_eigenvalues`` (:532), ``flexible_cg`` (:555,
+Polak-Ribière β), ``gmres`` (:739, restarted, Givens QR, right
+preconditioning by default; the math of ``_gmres_device`` :595),
+``fgmres`` (:852, the preconditioned vectors Z stored), ``bicgstab``
+(:918, right preconditioned, with its breakdown tests), ``richardson``
+(:962), ``idr`` (:981, IDR(s) with a NumPy shadow space), ``solve``
+(:1061) and ``cg_traceable`` (:1073), the coarse solver's CG to a fixed
+reduction.  Dot products of sub-float64 vectors accumulate in float64.
+The JAX package's double-single outer loop is not ported: the outer matvec
+is native float64.
 """
 
 from __future__ import annotations
@@ -229,19 +233,8 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
             H[: k + 2, k] = col.numpy()
             hk1 = H[k + 1, k]
             V[k + 1] = w / hk1 if hk1 != 0.0 else w
-            for j in range(k):
-                t = cs[j] * H[j, k] + sn[j] * H[j + 1, k]
-                H[j + 1, k] = -sn[j] * H[j, k] + cs[j] * H[j + 1, k]
-                H[j, k] = t
-            denom = np.hypot(H[k, k], H[k + 1, k])
-            cs[k] = H[k, k] / denom if denom else 1.0
-            sn[k] = H[k + 1, k] / denom if denom else 0.0
-            H[k, k] = denom
-            H[k + 1, k] = 0.0
-            g[k + 1] = -sn[k] * g[k]
-            g[k] = cs[k] * g[k]
             it += 1
-            state = control.check(it, abs(g[k + 1]))
+            state = control.check(it, _givens(H, cs, sn, g, k))
             if state != "iterate" or hk1 == 0.0:
                 k += 1
                 break
@@ -261,19 +254,258 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
     return SolveResult(x, it, state == "success", control.history)
 
 
-_SOLVERS = {"CG": cg, "GMRES": gmres}
+def flexible_cg(A, b, M=None, control=None) -> SolveResult:
+    """Flexible CG from x = 0, deal.II SolverFlexibleCG: the Polak-Ribière
+    β = (z, r − r_old) / (z_old, r_old), so a preconditioner that varies
+    between applies keeps the iteration well defined."""
+    M = M or _identity
+    control = control or ReductionControl()
+    x = torch.zeros_like(b)
+    r = b
+    state = control.check(0, _norm(r))
+    it = 0
+    r_old = p = rz_old = None
+    while state == "iterate":
+        z = M(r)
+        rz = _dot(r, z)
+        if p is None:
+            p = z
+        else:
+            p = z + (_dot(z, r - r_old) / rz_old) * p
+        it += 1
+        Ap = A(p)
+        pAp = _dot(p, Ap)
+        if pAp == 0.0:
+            break
+        alpha = rz / pAp
+        r_old, rz_old = r, rz
+        x = x + alpha * p
+        r = r - alpha * Ap
+        state = control.check(it, _norm(r))
+    return SolveResult(x, it, state == "success", control.history)
+
+
+def _givens(H, cs, sn, g, k):
+    """Apply the k earlier rotations to column k of H, make the new one and
+    rotate g; returns |g_k+1|, the residual estimate."""
+    for j in range(k):
+        t = cs[j] * H[j, k] + sn[j] * H[j + 1, k]
+        H[j + 1, k] = -sn[j] * H[j, k] + cs[j] * H[j + 1, k]
+        H[j, k] = t
+    denom = np.hypot(H[k, k], H[k + 1, k])
+    cs[k] = H[k, k] / denom if denom else 1.0
+    sn[k] = H[k + 1, k] / denom if denom else 0.0
+    H[k, k] = denom
+    H[k + 1, k] = 0.0
+    g[k + 1] = -sn[k] * g[k]
+    g[k] = cs[k] * g[k]
+    return abs(g[k + 1])
+
+
+def fgmres(A, b, M=None, control=None, restart: int = 28) -> SolveResult:
+    """Flexible GMRES (deal.II SolverFGMRES): right preconditioned with the
+    preconditioned vectors z_k = M(v_k) stored, so x is updated from them
+    and M may vary between applies; modified Gram-Schmidt, Givens QR, the
+    small system solved with ``np.linalg.solve`` as in the JAX package.
+    Each later cycle restarts from r = b − A x."""
+    M = M or _identity
+    control = control or ReductionControl()
+    x = torch.zeros_like(b)
+    it = 0
+    first = True
+    while True:
+        r = b if first else b - A(x)
+        beta = _norm(r)
+        if first:
+            first = False
+            state = control.check(0, beta)
+            if state != "iterate":
+                break
+        V, Z = [r / beta], []
+        H = np.zeros((restart + 1, restart))
+        cs, sn = np.zeros(restart), np.zeros(restart)
+        g = np.zeros(restart + 1)
+        g[0] = beta
+        k = 0
+        for k in range(restart):
+            Z.append(M(V[k]))
+            w = A(Z[k])
+            for j in range(k + 1):
+                H[j, k] = _dot(V[j], w)
+                w = w - H[j, k] * V[j]
+            hk1 = H[k + 1, k] = _norm(w)
+            it += 1
+            state = control.check(it, _givens(H, cs, sn, g, k))
+            if state != "iterate" or hk1 == 0.0:
+                k += 1
+                break
+            V.append(w / hk1)
+        else:
+            k = restart
+        if k > 0:
+            y = np.linalg.solve(H[:k, :k], g[:k])
+            update = Z[0] * y[0]
+            for j in range(1, k):
+                update = update + Z[j] * y[j]
+            x = x + update
+        if state != "iterate":
+            break
+    return SolveResult(x, it, state == "success", control.history)
+
+
+def bicgstab(A, b, M=None, control=None) -> SolveResult:
+    """Right-preconditioned BiCGStab from x = 0 (deal.II SolverBicgstab's
+    monitoring): each iteration checks ‖s‖ after the half step (and stops
+    there with x + α·M(p)) and ‖r‖ after the full one; ρ = 0, ω = 0,
+    (r̂₀, v) = 0 end the loop as breakdowns, and (t, t) = 0 sets ω = 0."""
+    M = M or _identity
+    control = control or ReductionControl()
+    x = torch.zeros_like(b)
+    r = b
+    state = control.check(0, _norm(r))
+    r0 = r
+    rho_old = alpha = omega = 1.0
+    v = p = torch.zeros_like(b)
+    it = 0
+    while state == "iterate":
+        rho = _dot(r0, r)
+        if rho == 0.0 or omega == 0.0:
+            break
+        beta = (rho / rho_old) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = A(phat)
+        denom = _dot(r0, v)
+        if denom == 0.0:
+            break
+        alpha = rho / denom
+        s = r - alpha * v
+        it += 1
+        state = control.check(it, _norm(s))
+        if state != "iterate":
+            x = x + alpha * phat
+            break
+        shat = M(s)
+        t = A(shat)
+        tt = _dot(t, t)
+        omega = _dot(t, s) / tt if tt else 0.0
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho_old = rho
+        state = control.check(it, _norm(r))
+    return SolveResult(x, it, state == "success", control.history)
+
+
+def richardson(A, b, M=None, control=None, omega: float = 1.0) -> SolveResult:
+    """Preconditioned Richardson from x = 0, x ← x + ω M(b − A x), the true
+    residual checked each step (deal.II SolverRelaxation)."""
+    M = M or _identity
+    control = control or ReductionControl()
+    x = torch.zeros_like(b)
+    r = b
+    state = control.check(0, _norm(r))
+    it = 0
+    while state == "iterate":
+        x = x + omega * M(r)
+        r = b - A(x)
+        it += 1
+        state = control.check(it, _norm(r))
+    return SolveResult(x, it, state == "success", control.history)
+
+
+def idr_shadow_space(n: int, s: int, seed: int) -> np.ndarray:
+    """(n, s) orthonormal shadow space of IDR(s), built on the host as the
+    JAX package builds it: Q of ``np.linalg.qr`` of a standard normal
+    (n, s) draw from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return np.linalg.qr(rng.standard_normal((n, s)))[0]
+
+
+def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
+    """IDR(s) from x = 0 (van Gijzen/Sonneveld, deal.II SolverIDR): s
+    bi-orthogonalised steps against the shadow space, then one minimal-
+    residual step; every step counts as an iteration and checks ‖r‖.  The
+    shadow space is made once a solve on the host (``idr_shadow_space``)
+    and copied to b's device in b's dtype."""
+    M = M or _identity
+    control = control or ReductionControl()
+    x = torch.zeros_like(b)
+    r = b
+    state = control.check(0, _norm(r))
+    it = 0
+    Pnp = idr_shadow_space(b.shape[0], s, seed)
+    P = [torch.as_tensor(Pnp[:, j], device=b.device).to(b.dtype)
+         for j in range(s)]
+    del Pnp
+    G = [torch.zeros_like(b) for _ in range(s)]
+    U = [torch.zeros_like(b) for _ in range(s)]
+    Mmat = np.eye(s)
+    om = 1.0
+    while state == "iterate":
+        f = np.array([_dot(P[j], r) for j in range(s)])
+        for k in range(s):
+            c = np.linalg.solve(Mmat[k:, k:], f[k:])
+            v = r
+            for j in range(k, s):
+                v = v - c[j - k] * G[j]
+            v = M(v)
+            u = om * v
+            for j in range(k, s):
+                u = u + c[j - k] * U[j]
+            g = A(u)
+            for j in range(k):  # bi-orthogonalise against P[0..k-1]
+                alpha = _dot(P[j], g) / Mmat[j, j]
+                g = g - alpha * G[j]
+                u = u - alpha * U[j]
+            G[k], U[k] = g, u
+            for j in range(k, s):
+                Mmat[j, k] = _dot(P[j], g)
+            if Mmat[k, k] == 0.0:
+                state = "failure"
+                break
+            beta = f[k] / Mmat[k, k]
+            x = x + beta * u
+            r = r - beta * g
+            it += 1
+            state = control.check(it, _norm(r))
+            if state != "iterate":
+                break
+            for j in range(k + 1, s):
+                f[j] -= beta * Mmat[j, k]
+            f[k] = 0.0
+        if state != "iterate":
+            break
+        # the dimension-reduction step
+        v = M(r)
+        t = A(v)
+        tt = _dot(t, t)
+        om = _dot(t, r) / tt if tt else 0.0
+        x = x + om * v
+        r = r - om * t
+        it += 1
+        state = control.check(it, _norm(r))
+    return SolveResult(x, it, state == "success", control.history)
+
+
+SOLVERS = {"CG": cg, "FCG": flexible_cg, "GMRES": gmres, "FGMRES": fgmres,
+           "Bicgstab": bicgstab, "IDR": idr, "Richardson": richardson}
 
 
 def solve(solver_type, A, b, M=None, max_iterations=1000, abs_tolerance=1e-10,
-          rel_tolerance=1e-2, **kwargs) -> SolveResult:
-    """Dispatch mirroring the reference program's solve() for CG and GMRES;
+          rel_tolerance=1e-2, control_type="ReductionControl",
+          **kwargs) -> SolveResult:
+    """Dispatch mirroring the reference program's solve(); ``control_type``
+    "ReductionControl" or anything else for ``IterationNumberControl``;
     ``kwargs`` go to the solver (GMRES: restart, right_preconditioning,
-    orthogonalization)."""
-    if solver_type not in _SOLVERS:
-        raise NotImplementedError(
-            f"solver {solver_type!r} is not ported yet (ROADMAP item 11c)")
-    return _SOLVERS[solver_type](A, b, M=M, control=ReductionControl(
-        max_iterations, abs_tolerance, rel_tolerance), **kwargs)
+    orthogonalization; FGMRES: restart)."""
+    if solver_type not in SOLVERS:
+        raise ValueError(f"Solver <{solver_type}> is not known!")
+    if control_type == "ReductionControl":
+        control = ReductionControl(max_iterations, abs_tolerance,
+                                   rel_tolerance)
+    else:
+        control = IterationNumberControl(max_iterations, abs_tolerance)
+    return SOLVERS[solver_type](A, b, M=M, control=control, **kwargs)
 
 
 def cg_traceable(A, b, M=None, reduction: float = 1e-4,

@@ -1,9 +1,11 @@
-"""2D structured Cartesian meshes in the port against the JAX package.
+"""2D meshes in the port against the JAX package: Cartesian, deformed
+(Kershaw) and the unstructured ball.
 
-The JAX package reaches no Pallas kernel in 2D (its kernels A, B, C and E
-require dim 3), so the port's 2D path is plain torch on every device: the
-banded separable operator, the global FDM form, the transfers and the
-multigrid.  Inputs come from a seeded numpy generator and go to both
+The JAX package reaches no Pallas kernel in 2D (its kernels A-F require
+dim 3), so the port's 2D path is plain torch on every device: the banded
+separable operator or the merged form (three coefficients a quadrature
+point), the global or per-patch FDM form, the general operator of the
+ball with its fixed-order scatter, the transfers and the multigrid.  Inputs come from a seeded numpy generator and go to both
 packages.
 
 Tolerances (float64):
@@ -14,8 +16,11 @@ Tolerances (float64):
   2, vertex patches, every weighting, RAS), transfers, the dense coarse
   inverse and a V-cycle over float64 levels: rel 1e-12;
 - float32 operator: rel 1e-5 (float32 rounding).
+Deformed and ball operators, per-patch FDM and ball transfers: rel 1e-12
+(float64), the JAX general operator in its cell-major float64 form.
 Counts: ``inputs/dummy.json`` (2D Q3, 625 DoFs, CG around Diagonal) takes
-the JAX package's count (24), run live here.
+the JAX package's count (24), run live here, as are CG around Diagonal on
+2D Kershaw and the 2D ball; the multigrid counts are the JAX package's.
 """
 
 import copy
@@ -39,6 +44,24 @@ from dealii_asm_tpu.precond.factory import \
     create_system_preconditioner as jax_create
 from dealii_asm_tpu.precond.multigrid import DirectCoarseSolver as JaxDirect
 from dealii_asm_tpu.precond.multigrid import Multigrid as JaxMultigrid
+from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler as JaxGeneralDofs
+from dealii_asm_tpu.mesh.transforms import kershaw_transform
+from dealii_asm_tpu.mesh.unstructured import \
+    hyper_ball_balanced as jax_hyper_ball
+from dealii_asm_tpu.ops.laplace_general import \
+    GeneralLaplaceOperator as JaxGeneralLaplace
+from dealii_asm_tpu.ops.transfer_general import \
+    GeneralTwoLevelTransfer as JaxGeneralTransfer
+from dealii_asm_tpu.precond.asm_general import \
+    GeneralASMPreconditioner as JaxGeneralASM
+from dealii_asm_tpu_torch.interop import (dofs_from_jax,
+                                          general_dofs_from_jax,
+                                          general_laplace_from_jax,
+                                          laplace_from_jax)
+from dealii_asm_tpu_torch.kernels.merged_laplace import merged_laplace_plain
+from dealii_asm_tpu_torch.ops.laplace_general import GeneralLaplaceOperator
+from dealii_asm_tpu_torch.ops.transfer_general import GeneralTwoLevelTransfer
+from dealii_asm_tpu_torch.precond.asm_general import GeneralASMPreconditioner
 from dealii_asm_tpu_torch.fem.dofs import DofHandler
 from dealii_asm_tpu_torch.fem.functions import make_rhs_and_dbc
 from dealii_asm_tpu_torch.fem.patches import (element_patch_indices,
@@ -49,7 +72,8 @@ from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
 from dealii_asm_tpu_torch.ops.lattice import (grid_to_windows, window_layout,
                                               windows_to_grid)
 from dealii_asm_tpu_torch.ops.transfer import TwoLevelTransfer
-from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+from dealii_asm_tpu_torch.precond.asm import (ASMPreconditioner,
+                                              CellASMPreconditioner)
 from dealii_asm_tpu_torch.precond.diagonal import DiagonalPreconditioner
 from dealii_asm_tpu_torch.precond.factory import create_system_preconditioner
 from dealii_asm_tpu_torch.precond.multigrid import (DirectCoarseSolver,
@@ -298,9 +322,151 @@ def test_mg_solve_2d_matches_jax():
 @pytest.mark.parametrize("mesh", [{"name": "kershaw", "eps": 0.3},
                                   {"name": "hyperball"}])
 def test_unported_2d_meshes_raise(mesh):
-    """2D deformed meshes and the 2D ball stay ROADMAP item 9."""
+    """2D deformed meshes and the 2D ball no longer raise (they were ROADMAP
+    item 9 until the ports of ``ops/laplace.py``'s 2D merged form and of
+    the 2D general operator, transfer and Schwarz): CG around the inverse
+    diagonal at 1 refinement takes the JAX package's count, run live."""
     params = {"dim": 2, "degree": 2, "n refinements": 1, "mesh": mesh,
               "solver": {"type": "CG"},
               "preconditioner": {"type": "Diagonal"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        run_config(params, log=_quiet, device="cpu")
+    logged = []
+    got = run_config(copy.deepcopy(params), log=logged.append, device="cpu")
+    ref = jax_run_config(copy.deepcopy(params), log=_quiet)
+    assert got["converged"] and got["it"] == ref["it"]
+    assert got["it"] == {"kershaw": 68, "hyperball": 13}[mesh["name"]]
+    # the JAX float64 deformed apply is double-single, which XLA:CPU
+    # degrades to ~3e-8 a call (see the header); 68 iterations carry it
+    assert _rel(got["solution"].numpy(), np.asarray(ref["solution"])) < 3e-5
+    assert any("2D mesh: plain torch" in str(m) for m in logged)
+
+
+def _kershaw_dofs(p, cells=(6, 6)):
+    tf = kershaw_transform(0.3, 0.3)
+    jd = JaxDofHandler(JaxMesh(2, cells, transform=tf), p)
+    return jd, dofs_from_jax(jd)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_deformed_2d_operator_matches_jax(p):
+    """The 2D merged form (three coefficients [xx, yy, xy] a quadrature
+    point, mapping degree min(p, 3)): apply, residual, inverse diagonal and
+    the gaussian rhs with its lift at rel 1e-12 (float64), float32 at 1e-5,
+    and the operator built from the JAX package's geometry (``interop``)."""
+    jd, dofs = _kershaw_dofs(p)
+    jop = JaxLaplace(jd, dtype=jnp.float64, kernel="banded")
+    op = LaplaceOperator(dofs, device="cpu")
+    assert op.coeff6.shape == (36, 3, (p + 1) ** 2)
+    assert op._kernel is merged_laplace_plain
+    x = _vec(dofs.n_dofs, 20 + p)
+    ref = np.asarray(jop.vmult(jnp.asarray(x)))
+    assert _rel(op.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
+    assert _rel(laplace_from_jax(jop, device="cpu").vmult(
+        torch.as_tensor(x)).numpy(), ref) < 1e-12
+    op32 = LaplaceOperator(dofs, dtype=torch.float32, device="cpu")
+    assert _rel(op32.vmult(torch.as_tensor(x).float()).numpy(), ref) < 1e-5
+    assert _rel(op.compute_inverse_diagonal().numpy(),
+                np.asarray(jop.compute_inverse_diagonal())) < 1e-12
+    f, g = jax_rhs_and_dbc("gaussian", 2)
+    b = np.array(jop.assemble_rhs(f, dirichlet=g))
+    b[dofs.boundary_mask] = 0.0
+    pf, pg = make_rhs_and_dbc("gaussian", 2)
+    assert _rel(op.assemble_rhs(pf, dirichlet=pg).numpy(), b) < 1e-12
+
+
+@pytest.mark.parametrize("p,overlap,patch,wt", [
+    (2, 1, "element", "symm"), (3, 2, "element", "post"),
+    (3, 1, "vertex", "none"), (2, 1, "element", "ras")])
+def test_deformed_2d_fdm_matches_jax(p, overlap, patch, wt):
+    """Per-patch FDM Schwarz on 2D Kershaw against the JAX package (its
+    tables do not factor per coordinate): rel 1e-12."""
+    jd, dofs = _kershaw_dofs(p)
+    jasm = JaxASM(jd, n_overlap=overlap, weighting_type=wt,
+                  dtype=jnp.float64, patch_type=patch)
+    asm = CellASMPreconditioner(dofs, n_overlap=overlap, weighting_type=wt,
+                                device="cpu", patch_type=patch)
+    x = np.where(dofs.boundary_mask, 0.0, _vec(dofs.n_dofs, 30 + p))
+    assert _rel(asm.vmult(torch.as_tensor(x)).numpy(),
+                np.asarray(jasm.vmult(jnp.asarray(x)))) < 1e-12
+
+
+_BALL = [jax_hyper_ball(2)]
+
+
+def _ball_dofs(p, refinements=1):
+    """(JAX, port) DoF handlers on the 2D ball refined ``refinements``
+    times; one JAX mesh object per refinement, so that a p-transfer sees
+    the same mesh on both sides."""
+    while len(_BALL) <= refinements:
+        _BALL.append(_BALL[-1].refine())
+    jd = JaxGeneralDofs(_BALL[refinements], p)
+    return jd, general_dofs_from_jax(jd)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_ball_2d_operator_matches_jax(p):
+    """The 2D ball's general operator (plain torch, fixed-order scatter)
+    against the JAX package's cell-major float64 form: apply, inverse
+    diagonal, constant rhs at rel 1e-12; from the JAX coefficients
+    (``interop``, component order [xx, xy, yy] there)."""
+    jd, dofs = _ball_dofs(p)
+    jop = JaxGeneralLaplace(jd, dtype=jnp.float64, kernel="cells")
+    op = GeneralLaplaceOperator(dofs, device="cpu")
+    assert op.coeff6.shape[1] == 3
+    x = _vec(dofs.n_dofs, 40 + p)
+    ref = np.asarray(jop.vmult(jnp.asarray(x)))
+    assert _rel(op.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
+    lanes = JaxGeneralLaplace(jd, dtype=jnp.float64)
+    assert _rel(general_laplace_from_jax(lanes, device="cpu").vmult(
+        torch.as_tensor(x)).numpy(), ref) < 1e-12
+    assert _rel(op.compute_inverse_diagonal().numpy(),
+                np.asarray(jop.compute_inverse_diagonal())) < 1e-12
+    b = np.array(jop.assemble_rhs(lambda pts: np.ones(pts.shape[0])))
+    assert _rel(op.assemble_rhs("constant").numpy(), b) < 1e-12
+
+
+@pytest.mark.parametrize("p,overlap,patch", [(2, 1, "element"),
+                                             (3, 2, "element"),
+                                             (2, 1, "vertex")])
+def test_ball_2d_fdm_and_transfers_match_jax(p, overlap, patch):
+    """The 2D ball's per-patch FDM Schwarz (symm) and its h- and
+    p-transfers against the JAX package: rel 1e-12."""
+    jd, dofs = _ball_dofs(p)
+    jasm = JaxGeneralASM(jd, n_overlap=overlap, weighting_type="symm",
+                         dtype=jnp.float64, patch_type=patch)
+    asm = GeneralASMPreconditioner(dofs, n_overlap=overlap,
+                                   weighting_type="symm", device="cpu",
+                                   patch_type=patch)
+    x = np.where(dofs.boundary_mask, 0.0, _vec(dofs.n_dofs, 50 + p))
+    assert _rel(asm.vmult(torch.as_tensor(x)).numpy(),
+                np.asarray(jasm.vmult(jnp.asarray(x)))) < 1e-12
+    jc, coarse = _ball_dofs(p, 0)
+    jl, low = _ball_dofs(1)
+    for (jcd, cd), (jfd, fd) in (((jc, coarse), (jd, dofs)),
+                                 ((jl, low), (jd, dofs))):
+        jtr = JaxGeneralTransfer(jcd, jfd, dtype=jnp.float64)
+        tr = GeneralTwoLevelTransfer(cd, fd, device="cpu")
+        uc = _vec(cd.n_dofs, 60 + p)
+        assert _rel(tr.prolongate(torch.as_tensor(uc)).numpy(),
+                    np.asarray(jtr.prolongate(jnp.asarray(uc)))) < 1e-12
+        assert _rel(tr.restrict(torch.as_tensor(x)).numpy(),
+                    np.asarray(jtr.restrict(jnp.asarray(x)))) < 1e-12
+
+
+@pytest.mark.parametrize("mesh,degree,mg_type,expected", [
+    ({"name": "kershaw", "eps": 0.3}, 3, "h", 26),
+    ({"name": "hyperball"}, 2, "ph", 7),
+])
+def test_2d_multigrid_counts(mesh, degree, mg_type, expected):
+    """2D Kershaw (eps 0.3, Q3, h-multigrid) and the 2D ball (Q2,
+    ph-multigrid), Chebyshev-2 around FDM, dense coarse solve, at 2
+    refinements, CG to rel 1e-5: the JAX package's counts (26 and 7, its
+    run_config on these parameters)."""
+    params = {"dim": 2, "degree": degree, "n refinements": 2, "mesh": mesh,
+              "solver": {"type": "CG", "rel tolerance": 1e-5},
+              "preconditioner": {
+                  "type": "Multigrid", "mg type": mg_type,
+                  "mg smoother": {"type": "Chebyshev", "degree": 2,
+                                  "preconditioner": {"type": "FDM"}},
+                  "mg coarse grid solver": {"type": "AMG"}}}
+    got = run_config(params, log=_quiet, device="cpu")
+    assert got["converged"] and got["it"] == expected

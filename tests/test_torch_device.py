@@ -38,6 +38,12 @@ class NoJax:
         return None
 
 sys.meta_path.insert(0, NoJax())
+import torch
+# one intra-op thread (several test processes share the host), except for
+# the Kershaw solve, whose count at 0 refinements needs torch's default
+# (see tests/test_torch_poisson.py)
+threads = torch.get_num_threads()
+torch.set_num_threads(1)
 import dealii_asm_tpu_torch
 for m in pkgutil.walk_packages(dealii_asm_tpu_torch.__path__,
                                "dealii_asm_tpu_torch."):
@@ -55,7 +61,9 @@ with open("experiments/e2e_kershaw_q4.json") as f:
 p["n refinements"] = 0
 p["print timing"] = False
 p["solver"]["best of"] = 1
+torch.set_num_threads(threads)
 r = run_config(p, log=lambda *a: None, device="cpu")
+torch.set_num_threads(1)
 assert r["converged"] and r["it"] == 28, r["it"]
 with open("experiments/e2e_ball_q4.json") as f:
     p = json.load(f)

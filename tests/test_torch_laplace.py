@@ -150,8 +150,9 @@ def test_interop_drives_port_with_jax_tables():
 def test_unported_meshes_raise():
     # 2D Cartesian meshes are ported (tests/test_torch_2d.py) and so are
     # periodic ones (tests/test_torch_periodic.py, test_torch_benchmark.py:
-    # here a mesh periodic in x builds and equals the JAX operator); 2D
-    # deformed meshes are not
+    # here a mesh periodic in x builds and equals the JAX operator) and 2D
+    # deformed ones (here an identity-deformed 2D mesh equals the JAX
+    # operator; Kershaw in tests/test_torch_2d.py)
     jdofs = JaxDofHandler(JaxMesh(3, (2, 2, 2), periodic=(True, False, False)),
                           2)
     op = LaplaceOperator(DofHandler(StructuredMesh(
@@ -160,9 +161,14 @@ def test_unported_meshes_raise():
     ref = np.asarray(JaxLaplace(jdofs, dtype=jnp.float64, kernel="banded")
                      .vmult(jnp.asarray(x)))
     assert _rel(op.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        LaplaceOperator(DofHandler(StructuredMesh(
-            2, (2, 2), transform=lambda p: p), 2), device="cpu")
+    ident = lambda pts: pts
+    jdofs2 = JaxDofHandler(JaxMesh(2, (2, 2), transform=ident), 2)
+    op2 = LaplaceOperator(DofHandler(StructuredMesh(
+        2, (2, 2), transform=ident), 2), device="cpu")
+    x = np.random.default_rng(3).standard_normal(op2.n_dofs)
+    ref = np.asarray(JaxLaplace(jdofs2, dtype=jnp.float64, kernel="banded")
+                     .vmult(jnp.asarray(x)))
+    assert _rel(op2.vmult(torch.as_tensor(x)).numpy(), ref) < 1e-12
 
 
 @pytest.mark.parametrize("p", [2, 4])

@@ -94,21 +94,19 @@ def test_reduction_control_semantics(step, value, state):
 
 
 def test_solve_dispatch_cg_only():
-    """CG and GMRES dispatch (GMRES against the JAX package in
-    ``test_torch_gmres.py``); the other solvers raise naming ROADMAP item
-    11c."""
+    """Every solver of the reference program dispatches (each against the
+    JAX package in ``test_torch_krylov_breadth.py``, GMRES also in
+    ``test_torch_gmres.py``) and solves a small SPD system; an unknown
+    name raises."""
     A, b = _spd(10, 2)
     At = torch.as_tensor(A)
-    r = krylov.solve("CG", lambda x: At @ x, torch.as_tensor(b),
-                     rel_tolerance=1e-8)
-    assert r.converged
-    g = krylov.solve("GMRES", lambda x: At @ x, torch.as_tensor(b),
-                     rel_tolerance=1e-8)
-    assert g.converged and g.n_iterations <= 10
-    assert np.linalg.norm(g.x.numpy() - np.linalg.solve(A, b)) < 1e-6
-    for name in ("FCG", "FGMRES", "Bicgstab", "IDR", "Richardson"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11c"):
-            krylov.solve(name, lambda x: At @ x, torch.as_tensor(b))
+    for name in ("CG", "FCG", "GMRES", "FGMRES", "Bicgstab", "IDR"):
+        r = krylov.solve(name, lambda x: At @ x, torch.as_tensor(b),
+                         rel_tolerance=1e-8)
+        assert r.converged and r.n_iterations <= 20, name  # IDR: 14
+        assert np.linalg.norm(r.x.numpy() - np.linalg.solve(A, b)) < 1e-6
+    with pytest.raises(ValueError, match="not known"):
+        krylov.solve("Jacobi", lambda x: At @ x, torch.as_tensor(b))
 
 
 def test_eig_initial_guess_matches_jax():
