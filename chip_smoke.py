@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only 17,18,19,20   # build + the named inputs
     python3 chip_smoke.py --only 21   # build + the matrix-free-loop driver
     python3 chip_smoke.py --only 22   # build + the solver breadth phase
+    python3 chip_smoke.py --only 23   # build + multi-device, drivers, output
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -158,7 +159,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    Diagonal, 8 refinements), no kernel launched; (e) the matrix-based
    AdditiveSchwarz (overlap 1 and 2), SubMesh and CG preconditioners at
    12^3 cells Q4 through run_config and the DomainPreconditioner at 8^3,
-   each count equal to the CPU path's at the same size.
+   each count equal to the CPU path's at the same size;
+23. multi-device on structured meshes and the last drivers: (a) the
+   flagship through the sharded path (``parallel/driver.py``) at world size
+   1 under NCCL (a one-rank process group of this process; NCCL refuses two
+   ranks on one card): at 2 refinements with its 17^3 level sharded against
+   the plain CPU path on one device (4 iterations, rel l2 1e-6), then at
+   full size with levels 4-6 sharded: 5 iterations, the solution within
+   1e-5 of the single-device solve, which runs first with a StageTimer whose
+   level x stage table is printed; its collectives, the replicated tail's
+   launches (E, F and D none), and the top sharded level's plain applies
+   beside kernels A and B at the same size; (b) the dryrun
+   (``parallel/dryrun.py``) on one spawned NCCL rank; (c) the variant
+   studies (composition: graph and eager chains; access: global, lanes and
+   cuda, kernel C's step held to the global step within C's bound 1e-4)
+   at 64^3 cells Q4 and the power kernel on the periodic box of 64^3 cells
+   Q4 (16,777,216 DoFs), every ``>>`` line printed; the mesh gallery into a
+   temporary directory; "do output" at 2 refinements.
 Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
@@ -1363,6 +1380,7 @@ def run_new_paths(counts, phases) -> None:
     run_input_paths(counts, phases)
     run_benchmark_paths(phases)
     run_breadth_paths(counts, phases)
+    run_parallel_paths(counts, phases)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1944,6 +1962,201 @@ def run_breadth_paths(counts, phases) -> None:
     run_block_paths(counts)
 
 
+def _flagship(refinements: int | None = None) -> dict:
+    with open(FLAGSHIP) as f:
+        params = json.load(f)
+    if refinements is not None:
+        params["n refinements"] = refinements
+    return params
+
+
+def run_sharded_flagship(counts) -> None:
+    """Phase 23 (a): the flagship through ``parallel/driver.py`` at world
+    size 1 under NCCL (a one-rank process group in this process), the
+    levels from 274,625 DoFs up sharded (plain torch per shard) over the
+    replicated tail of the single-device factory.  First at 2 refinements
+    with the 17^3 level sharded ("replicate below" 1000) against the plain
+    CPU path on one device (the JAX package's count 4); then at full size
+    beside the single-device solve with a ``StageTimer`` (its level x stage
+    table printed): 5 iterations, the solution within the solve's 1e-5
+    relative of the single-device one.  Then the top sharded level's plain
+    applies beside kernels A (float32) and B at the same size."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dealii_asm_tpu_torch.kernels import (LAUNCHES, launch_counts,
+                                              reset_launch_counts)
+    from dealii_asm_tpu_torch.models.poisson import run_config
+    from dealii_asm_tpu_torch.parallel.sharding import process_shards
+    from dealii_asm_tpu_torch.utils.profiling import StageTimer
+
+    quiet = lambda *a: None  # noqa: E731
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        shards = process_shards(1, "cuda")
+        print(f"  process group: {dist.get_backend()} world size "
+              f"{dist.get_world_size()}, rank device {shards.device}")
+        small = _flagship(2)
+        small["print timing"] = False
+        small["solver"]["best of"] = 1
+        small["preconditioner"]["replicate below"] = 1000
+        r_card = run_config(copy.deepcopy(small), log=quiet, device="cuda",
+                            shards=shards)
+        r_cpu = run_config(copy.deepcopy(small), log=quiet, device="cpu")
+        rel = float((r_card["solution"].cpu() - r_cpu["solution"]).norm()
+                    / r_cpu["solution"].norm())
+        print(f"  sharded flagship at 2 refinements ({r_card['n_dofs']} "
+              f"DoFs, the 17^3 level sharded): card {r_card['it']} its, cpu "
+              f"one device {r_cpu['it']} (JAX 4), rel l2 {rel:.3e} (bound "
+              "1e-6)")
+        if not (r_card["converged"] and r_card["it"] == r_cpu["it"] == 4
+                and rel <= 1e-6):
+            raise Failed("sharded flagship at 2 refinements disagrees")
+
+        timer = StageTimer()
+        torch.cuda.empty_cache()
+        ref = run_config(_flagship(), log=quiet, device="cuda", timer=timer)
+        print(f"  single-device flagship with the stage timer: it "
+              f"{ref['it']}, best-of-3 solve {ref['time']:.4f} s (each "
+              "stage synchronized); the level x stage table above (run_config"
+              " prints it under \"print timing\") sums the seconds over the "
+              "warm-up and 3 timed solves")
+        x_ref = ref["solution"]
+        del ref
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        shards.reset_traffic()
+        t0 = time.perf_counter()
+        res = run_config(_flagship(), log=quiet, device="cuda",
+                         shards=shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, traffic = launch_counts(), dict(shards.traffic)
+        rel = float((res["solution"] - x_ref).norm() / x_ref.norm())
+        print(f"  sharded flagship (world size 1, NCCL): {res['n_dofs']} "
+              f"DoFs, converged={res['converged']}, it={res['it']}, setup "
+              f"{res['setup_time']:.3f} s, best-of-3 solve "
+              f"{res['time']:.4f} s, run_config wall {wall:.3f} s, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; rel l2 to the single-device solution {rel:.3e} (bound "
+              "1e-5)")
+        print(f"  collectives over the run (setup, warm-up, 3 timed "
+              f"solves): {json.dumps(traffic)}; launch counts (the "
+              f"replicated tail): {json.dumps(got)}")
+        if not (res["converged"] and res["it"] == 5 and rel <= 1e-5
+                and res["n_dofs"] == 16_974_593):
+            raise Failed("sharded flagship: wrong count or solution")
+        for k in KERSHAW_KERNELS + BALL_KERNELS + LADDER_KERNELS:
+            if got[k] != 0:
+                raise Failed(f"kernel {k} launched on the sharded path")
+        b = torch.sin(torch.arange(res["n_dofs"], dtype=torch.float64,
+                                   device="cuda"))
+        shards.reset_traffic()
+        res["preconditioner"].vmult(b)
+        print(f"  one sharded V-cycle: {json.dumps(shards.traffic)} (CG adds 3 "
+              "all_reduces an iteration: two dots and a norm)")
+        mg = res["preconditioner"].inner
+        top = mg.operators[-1].__self__  # the top level's ShardedLattice
+        saved = dict(LAUNCHES)
+        x = torch.randn(top.n_local, generator=torch.Generator().manual_seed(
+            SEED)).to(device="cuda", dtype=torch.float32)
+        v_ms = cuda_time(lambda: top.vmult(x), 10)
+        f_ms = cuda_time(lambda: top.smoother_vmult(x), 10)
+        yard = Yardstick()
+        yard.time()
+        LAUNCHES.update(saved)
+        print(f"  top sharded level at {top.n_dofs} DoFs (float32): plain "
+              f"vmult {v_ms:.4f} ms ({v_ms / top.n_dofs * 1e6:.4f} ns per "
+              f"DoF) against kernel A {yard.a_ms[0]:.4f} ms; plain FDM "
+              f"{f_ms:.4f} ms against kernel B {yard.b_ms[0]:.4f} ms")
+        del res, x_ref, mg, top, yard, b
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+
+
+def run_drivers_output() -> None:
+    """Phase 23 (b) and (c): the dryrun launcher with one NCCL rank; the
+    variant studies (composition and access) and the power kernel at 64^3
+    cells Q4 and the periodic box of 64^3 cells (16,777,216 DoFs), every
+    ``>>`` line printed, kernel C's ``cuda`` access step held to the
+    ``global`` step within C's bound; the mesh gallery into a temporary
+    directory; "do output" at 2 refinements."""
+    import tempfile
+
+    import torch
+
+    from dealii_asm_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dealii_asm_tpu_torch.models import (mesh_gallery, power_kernel,
+                                             variant_bench)
+    from dealii_asm_tpu_torch.models.poisson import run_config
+    from dealii_asm_tpu_torch.parallel.dryrun import dryrun, spawn
+
+    print("== phase 23b: dryrun, one NCCL rank (spawned)")
+    rec = spawn(1, dryrun, device="cuda")[0]
+    print(f"  {json.dumps(rec)}")
+    if not rec["ok"]:
+        raise Failed("dryrun on the card failed")
+
+    print("== phase 23c: variant studies and power kernel at 64^3 cells Q4")
+    torch.cuda.empty_cache()
+    bench = {"n subdivisions": 64, "degree": 4, "n repetitions": 3}
+    variant_bench.run_composition_bench(bench, device="cuda")
+    steps = {}
+    reset_launch_counts()
+    variant_bench.run_access_bench(
+        bench, device="cuda",
+        on_label=lambda label, fn, x: steps.setdefault(label, fn(x)))
+    got = launch_counts()
+    err = rel_err(steps["cuda"], steps["global"])
+    print(f"  access: cuda step against the global step: max rel err "
+          f"{err:.3e} (bound {BOUNDS['smoother_step']:g}); kernel C "
+          f"launches {got['smoother_step']}")
+    if err > BOUNDS["smoother_step"] or got["smoother_step"] <= 0:
+        raise Failed("the cuda access step disagrees or did not launch C")
+    del steps
+    torch.cuda.empty_cache()
+    power_kernel.run_power_kernel({"n subdivision": 36, "fe degree": 4,
+                                   "n repetitions": 5}, device="cuda")
+
+    print("== phase 23c: mesh gallery and \"do output\"")
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = mesh_gallery.run_gallery(os.path.join(tmp, "gallery"))
+        mesh_gallery.run_coarsening(4)
+        path = os.path.join(tmp, "flagship_r2.vtu")
+        params = _flagship(2)
+        params.update({"print timing": False, "do output": True,
+                       "output file": path})
+        params["solver"]["best of"] = 1
+        res = run_config(params, log=lambda *a: None, device="cuda")
+        with open(path) as f:
+            head = f.read(400)
+        n_pts = f'NumberOfPoints="{res["n_dofs"]}"'
+        print(f"  gallery: {len(rows)} meshes; do output: "
+              f"{os.path.getsize(path)} bytes, {n_pts}")
+        if len(rows) != 10 or n_pts not in head:
+            raise Failed("gallery or VTU output wrong")
+
+
+def run_parallel_paths(counts, phases) -> None:
+    """Phase 23 (if named in ``phases``): (a)-(c) above."""
+    if 23 not in phases:
+        return
+    t0 = time.perf_counter()
+    print("== phase 23a: the flagship through the sharded path, world size "
+          "1, NCCL")
+    run_sharded_flagship(counts)
+    run_drivers_output()
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+
 def run_benchmark_paths(phases) -> None:
     """Phase 21 (if named in ``phases``): the matrix-free-loop driver
     (``models/benchmark.py``) on periodic meshes.  The card against the
@@ -1986,7 +2199,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-21) to run after "
+                    help="comma-separated solve phases (9-23) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -2058,7 +2271,7 @@ def main(argv=None) -> int:
             run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
                       check_vcycle=True)
             run_ladder(counts)
-            run_new_paths(counts, range(9, 23))
+            run_new_paths(counts, range(9, 24))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -2,6 +2,9 @@
 
 Runs each JSON config through the port's ``run_config`` (one table row each)
 and prints the org-mode convergence table, like ``python -m dealii_asm_tpu``.
+A config with "n devices" N > 1 runs under torchrun, one process per
+device (``torchrun --nproc-per-node N -m dealii_asm_tpu_torch cfg.json``);
+rank 0 logs and prints the table.
 """
 
 import argparse
@@ -23,7 +26,12 @@ def main(argv=None):
         with open(path) as f:
             params = json.load(f)
         run_config(params, table, device=args.device)
-    table.print()
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        table.print()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -17,8 +17,16 @@ constrained rows) and adds g to the solution.  The JAX package writes g
 into the constrained rows of b instead, which its Schwarz smoothers never
 reduce (ROADMAP queue 3).  The result dict carries the same keys (``it``,
 ``converged``, ``time``, ``solution`` ...), plus ``setup_time``, the first
-solve's ``residuals`` and the ``preconditioner``.  Options outside the
-slice raise NotImplementedError naming their ROADMAP item.
+solve's ``residuals`` and the ``preconditioner``.
+
+``"n devices"`` > 1 runs the multigrid solve of a structured mesh over that
+many ranks of a ``torch.distributed`` group (``parallel/driver.py``; one
+process per device, launched by torchrun), as the JAX package runs it over
+a device mesh; every rank returns the gathered solution and rank 0 logs.
+The sharded unstructured ball raises NotImplementedError (ROADMAP item
+5b).  ``"do output"`` writes the solution as a VTU file
+(``utils/vtu.py``), and a ``StageTimer`` passed as ``timer`` times the
+V-cycle's stages, printed under ``"print timing"``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from ..ops.laplace import LaplaceOperator
 from ..ops.laplace_general import GeneralLaplaceOperator
 from ..ops.transfer import TwoLevelTransfer, p_sequence
 from ..ops.transfer_general import GeneralTwoLevelTransfer
+from ..parallel.driver import build_sharded_multigrid
+from ..parallel.sharding import launched_world_size, process_shards
 from ..precond.adapter import PrecisionAdapter
 from ..precond.factory import create_system_preconditioner
 from ..precond.fdm import NoVertexPatches
@@ -48,7 +58,9 @@ from ..solvers.krylov import cg, gmres
 from ..solvers.krylov import solve as krylov_solve
 from ..solvers.refinement import refined_solve
 from ..utils.config import get_child, get_param
+from ..utils.profiling import StageTimer
 from ..utils.table import ConvergenceTable
+from ..utils.vtu import write_vtu
 
 # "mg number type" (top-level key, as in the JAX run_config): "" means the outer
 # type; a missing key means the policy's level type
@@ -215,7 +227,8 @@ def mg_level_layout(precon_p: dict, family, fe_degree: int,
 
 
 def _build_multigrid(params: dict, family, fe_degree: int, log,
-                     dtype, device) -> Multigrid:
+                     dtype, device, timer: StageTimer | None = None
+                     ) -> Multigrid:
     levels, intermediate = mg_level_layout(params, family, fe_degree, log)
     ops, dofs_list = [], []
     for r, d in levels:
@@ -259,29 +272,52 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
                          [make_smoother(l, smoother_p)
                           for l in range(intermediate + 1, len(levels))],
                          transfers[intermediate:], inner.vmult,
-                         one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
+                         one_sided=one_sided, n_coarse_cycles=n_coarse_cycles,
+                         timer=timer)
     smoothers = [make_smoother(l, smoother_p) for l in range(1, len(levels))]
     return Multigrid(ops, smoothers, transfers, coarse.vmult,
-                     one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
+                     one_sided=one_sided, n_coarse_cycles=n_coarse_cycles,
+                     timer=timer)
 
 
 def n_devices(params: dict, device: torch.device) -> int:
-    """The config's "n devices": an integer, or "auto" for every visible
-    device of the run's type (``torch.cuda.device_count()`` on CUDA, 1 on
-    the CPU), as the JAX package takes its visible device count."""
+    """The config's "n devices": an integer, or "auto" for the world size
+    of the run's process group (or of its torchrun launch), and without
+    one every visible device of the run's type
+    (``torch.cuda.device_count()`` on CUDA, 1 on the CPU), as the JAX
+    package takes its visible device count."""
     value = get_param(params, "n devices", 1)
     if value == "auto":
+        world = launched_world_size()
+        if world is not None:
+            return world
         return torch.cuda.device_count() if device.type == "cuda" else 1
     return int(value)
 
 
-def _check_unported_options(params: dict, device: torch.device) -> None:
-    if n_devices(params, device) > 1:
+def _quiet(*_):
+    pass
+
+
+def _sharding(params: dict, device: torch.device, shards):
+    """This rank's ``Shards`` when the solve runs over several ranks (or
+    over the ``shards`` given), else None."""
+    n = n_devices(params, device)
+    if shards is None and n <= 1:
+        return None
+    if get_child(params, "preconditioner").get("type", "") != "Multigrid":
+        raise ValueError("'n devices' > 1 supports Multigrid "
+                         "preconditioners")
+    if get_child(params, "mesh").get("name", "hypercube") == "hyperball":
         raise NotImplementedError(
-            "'n devices' > 1 is not ported yet (ROADMAP item 14)")
-    if get_param(params, "do output", False):
-        raise NotImplementedError("'do output' is not ported yet "
-                                  "(ROADMAP item 12)")
+            "'n devices' > 1 on the unstructured ball is not ported yet "
+            "(ROADMAP item 5b: parallel/general_sharded.py)")
+    if shards is None:
+        return process_shards(n, device)
+    if "n devices" in params and n != shards.world:
+        raise RuntimeError(f"'n devices' = {n}, but the shards number "
+                           f"{shards.world}")
+    return shards
 
 
 def _use_refinement(params: dict, mg_inner, solver_type: str, n_dofs: int,
@@ -301,13 +337,20 @@ def _use_refinement(params: dict, mg_inner, solver_type: str, n_dofs: int,
 
 
 def run_config(params: dict, table: ConvergenceTable | None = None,
-               log=print, device=DEFAULT_DEVICE):
+               log=print, device=DEFAULT_DEVICE,
+               timer: StageTimer | None = None, shards=None):
     """Run one config on ``device`` (float64 outer solve); returns the result
-    dict."""
+    dict.  ``timer`` times the V-cycle's stages; ``shards`` (a
+    ``parallel/sharding.py::Shards``) runs the sharded path over its ranks
+    whatever "n devices" says, world size 1 included."""
     t_setup = time.perf_counter()
     device = resolve_device(device)
     assert_no_tf32()
-    _check_unported_options(params, device)
+    shards = _sharding(params, device, shards)
+    if shards is not None:
+        device = shards.device
+        if shards.rank != 0:
+            log = _quiet
     dtype = OUTER_DTYPE
     table = table or ConvergenceTable()
     fe_degree = int(get_param(params, "degree", 1))
@@ -318,8 +361,9 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         log(" - 2D mesh: plain torch (kernels A-F take 3D meshes)")
     dofs = family.dofs_at(family.n_refinements, fe_degree)
     # the compact geometry forms serve the outer operator only; the levels
-    # keep the merged coefficients, as in the JAX package (``poisson.py:345``)
-    op = family.operator(dofs, dtype, device,
+    # keep the merged coefficients, as in the JAX package (``poisson.py:345``).
+    # A sharded solve assembles b on the host and keeps its slab
+    op = family.operator(dofs, dtype, device if shards is None else "cpu",
                          get_param(params, "operator mapping type", ""))
     rhs_fn, dbc_fn = make_rhs_and_dbc(get_param(params, "rhs", "constant"),
                                       family.dim)
@@ -346,8 +390,15 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
             # XLA there; the CUDA kernels are float and double templates
             log(" - bfloat16 levels: plain torch (kernels A-F take float32 "
                 "and float64 only)")
-        precon = _build_multigrid(precon_p, family, fe_degree, log,
-                                  level_dtype, device)
+        if shards is None:
+            precon = _build_multigrid(precon_p, family, fe_degree, log,
+                                      level_dtype, device, timer)
+        else:
+            log(f" - n devices:  {shards.world} (explicit-halo sharding)")
+            sharded = build_sharded_multigrid(
+                precon_p, family, fe_degree, log, level_dtype, op, shards,
+                timer=timer)
+            precon = sharded.mg
         if level_dtype != dtype:
             mg_inner = precon
             precon = PrecisionAdapter(precon, level_dtype)
@@ -376,8 +427,8 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         if mtv > 0:
             kwargs["restart"] = mtv - 2
 
-    if _use_refinement(params, mg_inner, solver_type, dofs.n_dofs,
-                       family.dim):
+    if shards is None and _use_refinement(params, mg_inner, solver_type,
+                                          dofs.n_dofs, family.dim):
         # the inner operator: the outer one built at the level precision
         # (``poisson.py:516-541``); its solve runs on float32 vectors
         op_level = family.operator(dofs, level_dtype, device)
@@ -392,6 +443,16 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
                 op.vmult, op_level.vmult, b, M_level, rel_tolerance=rel_tol,
                 abs_tolerance=abs_tol, inner_reduction=inner_red,
                 inner_solver=inner_solver, log=log)
+    elif shards is not None:
+        b_pad = sharded.pad(b)
+
+        def dispatch():
+            r = krylov_solve(solver_type, sharded.vmult, b_pad,
+                             M=precon.vmult, max_iterations=max_it,
+                             abs_tolerance=abs_tol, rel_tolerance=rel_tol,
+                             reduction=sharded.reduction, **kwargs)
+            r.x = sharded.unpad(r.x)
+            return r
     else:
         def dispatch():
             return krylov_solve(solver_type, op.vmult, b, M=precon.vmult,
@@ -426,8 +487,14 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         table.add_value("it", 999)
     if print_timing:
         table.add_value("time", solve_time)
-        log("   - (the port prints no stage timings; ROADMAP item 12)")
+        if timer is not None and (shards is None or shards.rank == 0):
+            timer.print_timings()
     table.add_value("aspect_ratio", mesh.max_aspect_ratio())
+    solution = result.x if g is None else result.x + g.to(result.x.device)
+    if get_param(params, "do output", False) and (shards is None
+                                                  or shards.rank == 0):
+        write_vtu(get_param(params, "output file", "multigrid.vtu"), dofs,
+                  {"solution": solution.cpu().numpy()})
     table.end_row()
     return {
         "n_cells": mesh.n_cells_total,
@@ -438,7 +505,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         "time": solve_time,
         "setup_time": setup_time,
         "residuals": result.residuals,
-        "solution": result.x if g is None else result.x + g,
+        "solution": solution,
         "preconditioner": precon,
         "table": table,
     }

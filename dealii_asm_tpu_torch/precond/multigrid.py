@@ -22,6 +22,7 @@ from ..ops.laplace import LaplaceOperator
 from ..ops.laplace_general import GeneralLaplaceOperator
 from ..ops.tensorops import outer_grid, outer_sum
 from ..solvers.krylov import cg_traceable
+from ..utils.profiling import StageTimer
 
 
 def assemble_dense(op) -> torch.Tensor:
@@ -142,10 +143,14 @@ class Multigrid:
 
     operators[l]: the level operator (with ``vmult`` and ``residual``) or a
     callable; smoothers[l-1]: object with vmult(b) and step(x, b) for level
-    l >= 1; transfers[l-1] connects level l-1 (coarse) to l (fine)."""
+    l >= 1; transfers[l-1] connects level l-1 (coarse) to l (fine).
+    ``timer`` (a ``utils/profiling.py::StageTimer``, none by default)
+    times the JAX package's stages per level: "pre smooth", "residual",
+    "restrict", "coarse solve", "prolongate" and "post smooth"."""
 
     def __init__(self, operators, smoothers, transfers, coarse_solver,
-                 one_sided: bool = False, n_coarse_cycles: int = 1):
+                 one_sided: bool = False, n_coarse_cycles: int = 1,
+                 timer: StageTimer | None = None):
         if len(operators) not in (len(smoothers), len(smoothers) + 1):
             raise ValueError("need one smoother per level above the coarsest")
         self.operators = operators
@@ -155,6 +160,7 @@ class Multigrid:
         self.one_sided = one_sided
         self.n_coarse_cycles = n_coarse_cycles
         self.n_levels = len(operators)
+        self.timer = timer
 
     def _residual(self, level: int, rhs, x):
         A = self.operators[level]
@@ -168,17 +174,24 @@ class Multigrid:
             x = x + self.coarse_solver(self._residual(0, rhs, x))
         return x
 
+    def _stage(self, level: int, name: str, fn, *args):
+        if self.timer is None:
+            return fn(*args)
+        return self.timer.run(level, name, fn, *args)
+
     def _v_step(self, level: int, rhs):
+        t = self._stage
         if level == 0:
-            return self._coarse_solve(rhs)
+            return t(0, "coarse solve", self._coarse_solve, rhs)
         smoother = self.smoothers[level - 1]
-        x = smoother.vmult(rhs)
-        r = self._residual(level, rhs, x)
-        rc = self.transfers[level - 1].restrict(r)
+        transfer = self.transfers[level - 1]
+        x = t(level, "pre smooth", smoother.vmult, rhs)
+        r = t(level, "residual", self._residual, level, rhs, x)
+        rc = t(level, "restrict", transfer.restrict, r)
         xc = self._v_step(level - 1, rc)
-        x = x + self.transfers[level - 1].prolongate(xc)
+        x = t(level, "prolongate", lambda: x + transfer.prolongate(xc))
         if not self.one_sided:
-            x = smoother.step(x, rhs)
+            x = t(level, "post smooth", smoother.step, x, rhs)
         return x
 
     def vmult(self, src):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE
-from .krylov import IterationNumberControl, cg
+from .krylov import LOCAL, IterationNumberControl, cg
 
 EIG_CG_N_ITERATIONS = 40  # deal.II's eig_cg_n_iterations
 
@@ -47,28 +47,33 @@ class EigenvalueInfo:
 
 def estimate_eigenvalues(A, n_dofs: int, M=None, constrained_mask=None,
                          algorithm: str = "lanczos",
-                         device=DEFAULT_DEVICE) -> EigenvalueInfo:
+                         device=DEFAULT_DEVICE, b0=None,
+                         reduction=None) -> EigenvalueInfo:
     """Largest eigenvalue of M⁻¹A from the float64 i%11 vector, by 40
     Lanczos-CG or power iterations; returns (λ̂, 1.2·λ̂) as the reference
-    prints them."""
-    b = eig_initial_guess(n_dofs, constrained_mask, device)
+    prints them.  ``b0`` overrides the start vector and ``reduction`` the
+    inner products (a sharded level passes its slab of the padded i%11
+    vector and the group's reduction, ``parallel/driver.py``)."""
+    b = eig_initial_guess(n_dofs, constrained_mask, device) if b0 is None \
+        else b0
+    red = reduction or LOCAL
     M = M or (lambda x: x)
     if algorithm == "power iteration":
         v = b
         lam = 1.0
         for _ in range(EIG_CG_N_ITERATIONS):
             w = M(A(v))
-            lam = float(torch.linalg.vector_norm(w)) / float(
-                torch.linalg.vector_norm(v))
-            v = w / torch.linalg.vector_norm(w)
+            norm_w = red.norm_t(w)
+            lam = float(norm_w) / red.norm(v)
+            v = w / norm_w
         return EigenvalueInfo(lam, 1.2 * lam, EIG_CG_N_ITERATIONS)
     if algorithm != "lanczos":
         raise ValueError(algorithm)
     # stop once converged in float64: later coefficients are noise
-    tol = max(1e-8, float(np.sqrt(np.finfo(np.float64).eps))) * float(
-        torch.linalg.vector_norm(b))
+    tol = max(1e-8, float(np.sqrt(np.finfo(np.float64).eps))) * red.norm(b)
     control = IterationNumberControl(EIG_CG_N_ITERATIONS, tol)
-    result = cg(A, b, M=M, control=control, track_eigenvalues=True)
+    result = cg(A, b, M=M, control=control, track_eigenvalues=True,
+                reduction=reduction)
     if result.tridiag_eigenvalues is None or len(result.tridiag_eigenvalues) == 0:
         lam = 1.0
     else:
@@ -117,7 +122,7 @@ class ChebyshevPreconditioner:
                  polynomial_type="1st kind",
                  eigenvalues: EigenvalueInfo | None = None,
                  constrained_mask=None, ev_algorithm="lanczos",
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, eig_b0=None, reduction=None):
         self.A = A
         self.M = M
         self.degree = int(degree)
@@ -126,7 +131,8 @@ class ChebyshevPreconditioner:
         if eigenvalues is None:
             eigenvalues = estimate_eigenvalues(
                 A, n_dofs, M=M, constrained_mask=constrained_mask,
-                algorithm=ev_algorithm, device=device)
+                algorithm=ev_algorithm, device=device, b0=eig_b0,
+                reduction=reduction)
         self.eigenvalues = eigenvalues
         mx = eigenvalues.max_eigenvalue_estimate
         mn = eigenvalues.min_eigenvalue_estimate
@@ -213,7 +219,8 @@ class RelaxationPreconditioner:
     def __init__(self, A, M, n_dofs, n_iterations=3, omega=0.0,
                  eigenvalues: EigenvalueInfo | None = None,
                  smoothing_range=20.0, constrained_mask=None,
-                 ev_algorithm="lanczos", device=DEFAULT_DEVICE):
+                 ev_algorithm="lanczos", device=DEFAULT_DEVICE, eig_b0=None,
+                 reduction=None):
         self.A = A
         self.M = M
         self.n_iterations = int(n_iterations)
@@ -221,7 +228,8 @@ class RelaxationPreconditioner:
             if eigenvalues is None:
                 eigenvalues = estimate_eigenvalues(
                     A, n_dofs, M=M, constrained_mask=constrained_mask,
-                    algorithm=ev_algorithm, device=device)
+                    algorithm=ev_algorithm, device=device, b0=eig_b0,
+                    reduction=reduction)
             mx = eigenvalues.max_eigenvalue_estimate
             alpha = mx / smoothing_range if smoothing_range > 1.0 else min(
                 0.9 * mx, eigenvalues.min_eigenvalue_estimate)

@@ -13,6 +13,8 @@ preconditioning by default; the math of ``_gmres_device`` :595),
 (:962), ``idr`` (:981, IDR(s) with a NumPy shadow space), ``solve``
 (:1061) and ``cg_traceable`` (:1073), the coarse solver's CG to a fixed
 reduction.  Dot products of sub-float64 vectors accumulate in float64.
+Every solver takes its inner products from ``reduction`` (a
+``Reduction``; by default ``LOCAL``, the vectors held whole on one device).
 The JAX package's double-single outer loop is not ported: the outer matvec
 is native float64.
 """
@@ -78,27 +80,51 @@ def _identity(x):
     return x
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> float:
-    if a.dtype != torch.float64:
-        a, b = a.double(), b.double()
-    return float(torch.dot(a, b))
+class Reduction:
+    """The inner products of the solvers, on vectors held whole on one
+    device: in float64, sub-float64 vectors widened first.  A sharded solve
+    passes ``parallel/sharding.py::GroupReduction``, whose products sum the
+    ranks' slabs in one ``all_reduce``, as the JAX package's dots on sharded
+    arrays do; ``world`` and ``rank`` place a rank's rows in the global
+    vector (IDR's shadow space)."""
+
+    world = 1
+    rank = 0
+
+    def dot_t(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if a.dtype != torch.float64:
+            a, b = a.double(), b.double()
+        return torch.dot(a, b)
+
+    def norm_t(self, a: torch.Tensor) -> torch.Tensor:
+        if a.dtype != torch.float64:
+            a = a.double()
+        return torch.linalg.vector_norm(a)
+
+    def dots(self, V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """V @ w for float64 rows V and vector w."""
+        return V @ w
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> float:
+        return float(self.dot_t(a, b))
+
+    def norm(self, a: torch.Tensor) -> float:
+        return float(self.norm_t(a))
 
 
-def _norm(a: torch.Tensor) -> float:
-    if a.dtype != torch.float64:
-        a = a.double()
-    return float(torch.linalg.vector_norm(a))
+LOCAL = Reduction()
 
 
 def cg(A, b, M=None, control: ReductionControl | None = None,
-       track_eigenvalues: bool = False) -> SolveResult:
+       track_eigenvalues: bool = False, reduction=None) -> SolveResult:
     """Preconditioned CG from a zero initial guess, deal.II SolverCG
     semantics."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     r = b.clone()
-    res = _norm(r)
+    res = red.norm(r)
     state = control.check(0, res)
     alphas, betas = [], []
     it = 0
@@ -107,11 +133,11 @@ def cg(A, b, M=None, control: ReductionControl | None = None,
     if state != "success":
         z = M(r)
         p = z
-        rz = _dot(r, z)
+        rz = red.dot(r, z)
         while state == "iterate":
             it += 1
             Ap = A(p)
-            pAp = _dot(p, Ap)
+            pAp = red.dot(p, Ap)
             if pAp <= 0.0 and track_eigenvalues:
                 break  # breakdown: further coefficients are noise
             if pAp == 0.0:
@@ -119,7 +145,7 @@ def cg(A, b, M=None, control: ReductionControl | None = None,
             alpha = rz / pAp
             x = x + alpha * p
             r = r - alpha * Ap
-            res = _norm(r)
+            res = red.norm(r)
             if track_eigenvalues:
                 # stagnation guard: once the residual stops decreasing in
                 # working precision, Lanczos coefficients are noise
@@ -136,7 +162,7 @@ def cg(A, b, M=None, control: ReductionControl | None = None,
                 alphas.append(alpha)
                 break
             z = M(r)
-            rz_new = _dot(r, z)
+            rz_new = red.dot(r, z)
             beta = rz_new / rz
             rz = rz_new
             p = z + beta * p
@@ -174,7 +200,8 @@ def _f64(t: torch.Tensor) -> torch.Tensor:
 
 def gmres(A, b, M=None, control: ReductionControl | None = None,
           restart: int = 28, right_preconditioning: bool = True,
-          orthogonalization: str = "classical") -> SolveResult:
+          orthogonalization: str = "classical",
+          reduction=None) -> SolveResult:
     """Restarted GMRES with a Givens QR of the Hessenberg matrix; right
     preconditioning by default, as deal.II's SolverGMRES in the reference
     program.  ``orthogonalization`` "classical" is CGS2 (two Gram-Schmidt
@@ -190,6 +217,7 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
     cycle; each later cycle restarts from r = b − A x (the first from
     x = 0)."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     V = torch.empty((restart + 1, b.shape[0]), dtype=b.dtype, device=b.device)
@@ -200,7 +228,7 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
         r = b if first else b - A(x)
         if not right_preconditioning:
             r = M(r)
-        beta = _norm(r)
+        beta = red.norm(r)
         if first:
             first = False
             state = control.check(0, beta)
@@ -217,19 +245,19 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
             w = _f64(w)
             Vk = _f64(V[: k + 1])
             if orthogonalization == "classical":
-                h1 = Vk @ w
+                h1 = red.dots(Vk, w)
                 w = torch.addmv(w, Vk.T, h1, alpha=-1.0)
-                h2 = Vk @ w
+                h2 = red.dots(Vk, w)
                 w = torch.addmv(w, Vk.T, h2, alpha=-1.0)
                 hcol = h1 + h2
             else:
                 hs = []
                 for j in range(k + 1):
-                    hs.append(torch.dot(Vk[j], w))
+                    hs.append(red.dot_t(Vk[j], w))
                     w = w - hs[-1] * Vk[j]
                 hcol = torch.stack(hs)
             # the one device-to-host copy of the iteration
-            col = torch.cat([hcol, torch.linalg.vector_norm(w)[None]]).cpu()
+            col = torch.cat([hcol, red.norm_t(w)[None]]).cpu()
             H[: k + 2, k] = col.numpy()
             hk1 = H[k + 1, k]
             V[k + 1] = w / hk1 if hk1 != 0.0 else w
@@ -254,34 +282,35 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
     return SolveResult(x, it, state == "success", control.history)
 
 
-def flexible_cg(A, b, M=None, control=None) -> SolveResult:
+def flexible_cg(A, b, M=None, control=None, reduction=None) -> SolveResult:
     """Flexible CG from x = 0, deal.II SolverFlexibleCG: the Polak-Ribière
     β = (z, r − r_old) / (z_old, r_old), so a preconditioner that varies
     between applies keeps the iteration well defined."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     r = b
-    state = control.check(0, _norm(r))
+    state = control.check(0, red.norm(r))
     it = 0
     r_old = p = rz_old = None
     while state == "iterate":
         z = M(r)
-        rz = _dot(r, z)
+        rz = red.dot(r, z)
         if p is None:
             p = z
         else:
-            p = z + (_dot(z, r - r_old) / rz_old) * p
+            p = z + (red.dot(z, r - r_old) / rz_old) * p
         it += 1
         Ap = A(p)
-        pAp = _dot(p, Ap)
+        pAp = red.dot(p, Ap)
         if pAp == 0.0:
             break
         alpha = rz / pAp
         r_old, rz_old = r, rz
         x = x + alpha * p
         r = r - alpha * Ap
-        state = control.check(it, _norm(r))
+        state = control.check(it, red.norm(r))
     return SolveResult(x, it, state == "success", control.history)
 
 
@@ -302,20 +331,22 @@ def _givens(H, cs, sn, g, k):
     return abs(g[k + 1])
 
 
-def fgmres(A, b, M=None, control=None, restart: int = 28) -> SolveResult:
+def fgmres(A, b, M=None, control=None, restart: int = 28,
+           reduction=None) -> SolveResult:
     """Flexible GMRES (deal.II SolverFGMRES): right preconditioned with the
     preconditioned vectors z_k = M(v_k) stored, so x is updated from them
     and M may vary between applies; modified Gram-Schmidt, Givens QR, the
     small system solved with ``np.linalg.solve`` as in the JAX package.
     Each later cycle restarts from r = b − A x."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     it = 0
     first = True
     while True:
         r = b if first else b - A(x)
-        beta = _norm(r)
+        beta = red.norm(r)
         if first:
             first = False
             state = control.check(0, beta)
@@ -331,9 +362,9 @@ def fgmres(A, b, M=None, control=None, restart: int = 28) -> SolveResult:
             Z.append(M(V[k]))
             w = A(Z[k])
             for j in range(k + 1):
-                H[j, k] = _dot(V[j], w)
+                H[j, k] = red.dot(V[j], w)
                 w = w - H[j, k] * V[j]
-            hk1 = H[k + 1, k] = _norm(w)
+            hk1 = H[k + 1, k] = red.norm(w)
             it += 1
             state = control.check(it, _givens(H, cs, sn, g, k))
             if state != "iterate" or hk1 == 0.0:
@@ -353,63 +384,66 @@ def fgmres(A, b, M=None, control=None, restart: int = 28) -> SolveResult:
     return SolveResult(x, it, state == "success", control.history)
 
 
-def bicgstab(A, b, M=None, control=None) -> SolveResult:
+def bicgstab(A, b, M=None, control=None, reduction=None) -> SolveResult:
     """Right-preconditioned BiCGStab from x = 0 (deal.II SolverBicgstab's
     monitoring): each iteration checks ‖s‖ after the half step (and stops
     there with x + α·M(p)) and ‖r‖ after the full one; ρ = 0, ω = 0,
     (r̂₀, v) = 0 end the loop as breakdowns, and (t, t) = 0 sets ω = 0."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     r = b
-    state = control.check(0, _norm(r))
+    state = control.check(0, red.norm(r))
     r0 = r
     rho_old = alpha = omega = 1.0
     v = p = torch.zeros_like(b)
     it = 0
     while state == "iterate":
-        rho = _dot(r0, r)
+        rho = red.dot(r0, r)
         if rho == 0.0 or omega == 0.0:
             break
         beta = (rho / rho_old) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = A(phat)
-        denom = _dot(r0, v)
+        denom = red.dot(r0, v)
         if denom == 0.0:
             break
         alpha = rho / denom
         s = r - alpha * v
         it += 1
-        state = control.check(it, _norm(s))
+        state = control.check(it, red.norm(s))
         if state != "iterate":
             x = x + alpha * phat
             break
         shat = M(s)
         t = A(shat)
-        tt = _dot(t, t)
-        omega = _dot(t, s) / tt if tt else 0.0
+        tt = red.dot(t, t)
+        omega = red.dot(t, s) / tt if tt else 0.0
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho_old = rho
-        state = control.check(it, _norm(r))
+        state = control.check(it, red.norm(r))
     return SolveResult(x, it, state == "success", control.history)
 
 
-def richardson(A, b, M=None, control=None, omega: float = 1.0) -> SolveResult:
+def richardson(A, b, M=None, control=None, omega: float = 1.0,
+               reduction=None) -> SolveResult:
     """Preconditioned Richardson from x = 0, x ← x + ω M(b − A x), the true
     residual checked each step (deal.II SolverRelaxation)."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     r = b
-    state = control.check(0, _norm(r))
+    state = control.check(0, red.norm(r))
     it = 0
     while state == "iterate":
         x = x + omega * M(r)
         r = b - A(x)
         it += 1
-        state = control.check(it, _norm(r))
+        state = control.check(it, red.norm(r))
     return SolveResult(x, it, state == "success", control.history)
 
 
@@ -421,19 +455,24 @@ def idr_shadow_space(n: int, s: int, seed: int) -> np.ndarray:
     return np.linalg.qr(rng.standard_normal((n, s)))[0]
 
 
-def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
+def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42,
+        reduction=None) -> SolveResult:
     """IDR(s) from x = 0 (van Gijzen/Sonneveld, deal.II SolverIDR): s
     bi-orthogonalised steps against the shadow space, then one minimal-
     residual step; every step counts as an iteration and checks ‖r‖.  The
     shadow space is made once a solve on the host (``idr_shadow_space``)
     and copied to b's device in b's dtype."""
     M = M or _identity
+    red = reduction or LOCAL
     control = control or ReductionControl()
     x = torch.zeros_like(b)
     r = b
-    state = control.check(0, _norm(r))
+    state = control.check(0, red.norm(r))
     it = 0
-    Pnp = idr_shadow_space(b.shape[0], s, seed)
+    # a sharded solve draws the global space and keeps its rank's rows
+    n = b.shape[0]
+    Pnp = idr_shadow_space(n * red.world, s, seed)[red.rank * n:
+                                                   (red.rank + 1) * n]
     P = [torch.as_tensor(Pnp[:, j], device=b.device).to(b.dtype)
          for j in range(s)]
     del Pnp
@@ -442,7 +481,7 @@ def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
     Mmat = np.eye(s)
     om = 1.0
     while state == "iterate":
-        f = np.array([_dot(P[j], r) for j in range(s)])
+        f = np.array([red.dot(P[j], r) for j in range(s)])
         for k in range(s):
             c = np.linalg.solve(Mmat[k:, k:], f[k:])
             v = r
@@ -454,12 +493,12 @@ def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
                 u = u + c[j - k] * U[j]
             g = A(u)
             for j in range(k):  # bi-orthogonalise against P[0..k-1]
-                alpha = _dot(P[j], g) / Mmat[j, j]
+                alpha = red.dot(P[j], g) / Mmat[j, j]
                 g = g - alpha * G[j]
                 u = u - alpha * U[j]
             G[k], U[k] = g, u
             for j in range(k, s):
-                Mmat[j, k] = _dot(P[j], g)
+                Mmat[j, k] = red.dot(P[j], g)
             if Mmat[k, k] == 0.0:
                 state = "failure"
                 break
@@ -467,7 +506,7 @@ def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
             x = x + beta * u
             r = r - beta * g
             it += 1
-            state = control.check(it, _norm(r))
+            state = control.check(it, red.norm(r))
             if state != "iterate":
                 break
             for j in range(k + 1, s):
@@ -478,12 +517,12 @@ def idr(A, b, M=None, control=None, s: int = 2, seed: int = 42) -> SolveResult:
         # the dimension-reduction step
         v = M(r)
         t = A(v)
-        tt = _dot(t, t)
-        om = _dot(t, r) / tt if tt else 0.0
+        tt = red.dot(t, t)
+        om = red.dot(t, r) / tt if tt else 0.0
         x = x + om * v
         r = r - om * t
         it += 1
-        state = control.check(it, _norm(r))
+        state = control.check(it, red.norm(r))
     return SolveResult(x, it, state == "success", control.history)
 
 
@@ -497,7 +536,8 @@ def solve(solver_type, A, b, M=None, max_iterations=1000, abs_tolerance=1e-10,
     """Dispatch mirroring the reference program's solve(); ``control_type``
     "ReductionControl" or anything else for ``IterationNumberControl``;
     ``kwargs`` go to the solver (GMRES: restart, right_preconditioning,
-    orthogonalization; FGMRES: restart)."""
+    orthogonalization; FGMRES: restart; every solver: ``reduction``, the
+    inner products of a sharded solve)."""
     if solver_type not in SOLVERS:
         raise ValueError(f"Solver <{solver_type}> is not known!")
     if control_type == "ReductionControl":

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .krylov import ReductionControl, SolveResult, _norm, cg
+from .krylov import LOCAL, ReductionControl, SolveResult, cg
 
 
 def refined_solve(A64, A_level, b, M_level, rel_tolerance=1e-5,
@@ -40,7 +40,7 @@ def refined_solve(A64, A_level, b, M_level, rel_tolerance=1e-5,
     b64 = b.to(torch.float64)
     r = b64
     x = torch.zeros_like(b64)
-    res = r0 = _norm(r)
+    res = r0 = LOCAL.norm(r)
     target = max(abs_tolerance, rel_tolerance * r0)
     total_inner = outer = 0
     history = [r0]
@@ -52,7 +52,7 @@ def refined_solve(A64, A_level, b, M_level, rel_tolerance=1e-5,
         total_inner += inner.n_iterations
         x = x + inner.x.to(torch.float64) * scale
         r = b64 - A64(x)
-        res = _norm(r)
+        res = LOCAL.norm(r)
         history.append(res)
         outer += 1
         log(f"   - refinement cycle {outer}: true residual {res:.3e} "

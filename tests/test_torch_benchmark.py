@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks
 import jax.numpy as jnp
 
 from dealii_asm_tpu.fem.dofs import DofHandler as JaxDofHandler
@@ -46,6 +47,7 @@ from dealii_asm_tpu.models import benchmark as jax_benchmark
 from dealii_asm_tpu.ops.laplace import LaplaceOperator as JaxLaplace
 from dealii_asm_tpu_torch.mesh.transforms import sinusoidal_displacement
 from dealii_asm_tpu_torch.models import benchmark
+from dealii_asm_tpu_torch.parallel.dryrun import spawn
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the Chebyshev labels' largest-eigenvalue estimates (float64 Lanczos or
@@ -181,13 +183,38 @@ def test_cli_on_the_cpu(capsys):
 
 
 def test_device_policy_and_n_devices():
+    """The card by default; "n devices" 2 on two gloo ranks prints the JAX
+    package's sharded lines (ghost columns 2·hw·plane) and applies the
+    operator and the FDM as one device does (float64, 1e-12); "auto"
+    without a process group is one device on the CPU."""
     params = dict(DRIVER_2D, **{"preconditioner types": "vmult"})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             benchmark.run_benchmark(params)  # the card by default
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        benchmark.run_benchmark(dict(params, **{"n devices": 2}),
-                                device="cpu")
+    sharded = dict(DRIVER_2D, **{"n devices": 2})
+    text, applied = spawn(2, _torch_ranks.benchmark_lines, (sharded,))[0]
+    # the JAX sharded Chebyshev retraces its shard_map at every Lanczos
+    # step (25 s here), so the JAX lines are those of the other labels;
+    # the Chebyshev label exchanges the operator's halo, as in the JAX
+    # package (``benchmark.py:93-97``)
+    jout = io.StringIO()
+    jax_benchmark.run_benchmark(
+        dict(sharded, **{"preconditioner types": "vmult post-1-c"}),
+        out=jout)
+    got, ref = _lines(text), _lines(jout.getvalue())
+    assert len(got) == 3 and [g[:4] + g[5:] for g in got[:2]] == [
+        r[:4] + r[5:] for r in ref]
+    assert got[2][1:4] == ["cheby-2-2-diag", got[0][2], "4"]
+    assert got[2][5:] == got[0][5:] and int(got[0][7]) > 0
+    assert np.isfinite(applied[2]).all()
+    single = []
+    benchmark.run_benchmark(dict(DRIVER_2D), out=io.StringIO(), device="cpu",
+                            on_label=lambda rec, fn, src: single.append(
+                                fn(src).numpy()))
+    for k in (0, 1):  # vmult and post-1-c; the pad planes come last
+        n = single[k].shape[0]
+        np.testing.assert_allclose(applied[k][:n], single[k], rtol=0,
+                                   atol=1e-12 * np.abs(single[k]).max())
     out = io.StringIO()
     benchmark.run_benchmark(dict(params, **{"n devices": "auto"}), out=out,
                             device="cpu")

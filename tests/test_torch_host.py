@@ -78,3 +78,46 @@ def test_config_and_table_match_jax():
         tab.add_value("time", 0.0663)
         tab.end_row()
     assert t.to_string() == jt.to_string()
+
+
+@pytest.mark.parametrize("n,n_dev,band,periodic", [
+    (12, 2, 2, False), (20, 4, 4, False), (16, 4, 3, True), (9, 1, 4, False)])
+def test_halo_host_helpers_match_jax(n, n_dev, band, periodic):
+    """The NumPy host part of parallel/halo.py (``halo.py:36-131``):
+    halo widths, banded blocks, padding and the grouped row layout."""
+    from dealii_asm_tpu.parallel import halo as jax_halo
+    from dealii_asm_tpu_torch.parallel import halo
+
+    rng = np.random.default_rng(n + band)
+    i, j = np.indices((n, n))
+    dist = np.abs(i - j)
+    if periodic:
+        dist = np.minimum(dist, n - dist)
+    A = np.where(dist <= band, rng.standard_normal((n, n)), 0.0)
+    n_pad = -(-n // n_dev) * n_dev
+    Ap = halo.pad_to(A, n_pad, n_pad)
+    np.testing.assert_array_equal(Ap, jax_halo.pad_to(A, n_pad, n_pad))
+    assert halo.min_halo_width(Ap, n_dev) == jax_halo.min_halo_width(
+        Ap, n_dev)
+    st, hw = halo.banded_stack(Ap, n_dev)
+    jst, jhw = jax_halo.banded_stack(Ap, n_dev)
+    assert hw == jhw and hw >= (band if n_dev > 1 else 0)
+    np.testing.assert_array_equal(st, jst)
+    # grouped rows: groups of 3 rows anchored every 2 nodes
+    n_groups, gs = n_pad // 2, 3
+    anchors = np.arange(n_groups) * 2
+    owner = halo.group_owners(anchors, n_pad // n_dev, n_dev)
+    np.testing.assert_array_equal(owner, jax_halo.group_owners(
+        anchors, n_pad // n_dev, n_dev))
+    pos, g_max = halo.grouped_row_layout(n_groups, owner, n_dev)
+    jpos, jg_max = jax_halo.grouped_row_layout(n_groups, owner, n_dev)
+    np.testing.assert_array_equal(pos, jpos)
+    assert g_max == jg_max
+    R = rng.standard_normal((n_groups * gs, n_pad))
+    np.testing.assert_array_equal(
+        halo.place_grouped_rows(R, gs, pos, g_max, n_dev),
+        jax_halo.place_grouped_rows(R, gs, pos, g_max, n_dev))
+    v = R[:, 0]
+    np.testing.assert_array_equal(
+        halo.place_grouped_vec(v, gs, pos, g_max, n_dev, fill=1.0),
+        jax_halo.place_grouped_vec(v, gs, pos, g_max, n_dev, fill=1.0))

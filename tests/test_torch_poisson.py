@@ -28,6 +28,7 @@ config.
 """
 
 import copy
+import filecmp
 import json
 import os
 
@@ -35,8 +36,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks
+from dealii_asm_tpu.fem.dofs import DofHandler as JaxDofHandler
+from dealii_asm_tpu.mesh.grid import StructuredMesh as JaxMesh
 from dealii_asm_tpu.models.poisson import run_config as jax_run_config
+from dealii_asm_tpu.utils.vtu import write_vtu as jax_write_vtu
 from dealii_asm_tpu_torch.models.poisson import run_config
+from dealii_asm_tpu_torch.parallel.dryrun import spawn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "experiments", "e2e_aniso_q4.json")) as _f:
@@ -179,22 +185,42 @@ def test_mg_level_layout_matches_jax(mg_type, mesh, degree, seq):
 
 
 @pytest.mark.parametrize("path,value,item", [
-    # the rhs, the symmetric hypercube, the compact mapping types, bfloat16
-    # levels and every solver are ported (tests/test_torch_rhs.py,
-    # test_torch_mapping_types.py, test_torch_inputs.py, test_torch_bf16.py,
-    # test_torch_krylov_breadth.py); "do output" and several devices are not
+    # the options that raised until PR 13, with the ROADMAP item each waited
+    # for; they now run and are held against the JAX package
     (("do output",), True, "ROADMAP item 12"),
     (("n devices",), 2, "ROADMAP item 14"),
     (("n devices",), 4, "ROADMAP item 14"),
 ])
-def test_unported_options_raise(path, value, item):
-    params = _config("e2e_aniso_q4 n refinements 1")
-    node = params
-    for key in path[:-1]:
-        node = node[key]
-    node[path[-1]] = value
-    with pytest.raises(NotImplementedError, match=item):
-        run_config(params, log=_quiet, device="cpu")
+def test_unported_options_raise(path, value, item, tmp_path):
+    """"do output" writes the VTU file the JAX writer writes for the same
+    solution; "n devices" 2 and 4 run the flagship at 2 refinements on that
+    many gloo ranks (the 17^3 top level sharded, "replicate below" 1000),
+    both with the JAX package's one-device count and solution (rel-l2
+    1e-8)."""
+    name = ("e2e_aniso_q4 n refinements 1" if path == ("do output",)
+            else "e2e_aniso_q4 n refinements 2")
+    params = _config(name)
+    params[path[-1]] = value
+    ref = jax_run_config(_config(name), log=_quiet)
+    x_ref = np.asarray(ref["solution"])
+    if path == ("do output",):
+        params["output file"] = str(tmp_path / "port.vtu")
+        got = run_config(params, log=_quiet, device="cpu")
+        runs = [(got["it"], got["converged"], got["solution"].numpy())]
+        dofs = JaxDofHandler(JaxMesh(3, (2, 2, 2)), 4)
+        jax_write_vtu(str(tmp_path / "jax.vtu"), dofs,
+                      {"solution": runs[0][2]})
+        assert filecmp.cmp(tmp_path / "port.vtu", tmp_path / "jax.vtu",
+                           shallow=False)
+    else:
+        params["preconditioner"]["replicate below"] = 1000
+        ranks = spawn(value, _torch_ranks.run_configs, ([params],))
+        runs = [rank[0][:3] for rank in ranks]  # one config per rank
+        assert len(runs) == value
+    for it, converged, x in runs:
+        assert converged and ref["converged"] and it == ref["it"]
+        rel = np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)
+        assert rel < 1e-8
 
 
 def _ladder(name, r):
