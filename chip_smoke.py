@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only 21   # build + the matrix-free-loop driver
     python3 chip_smoke.py --only 22   # build + the solver breadth phase
     python3 chip_smoke.py --only 23   # build + multi-device, drivers, output
+    python3 chip_smoke.py --only 24   # build + the sharded ball
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
@@ -171,11 +172,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches (E, F and D none), and the top sharded level's plain applies
    beside kernels A and B at the same size; (b) the dryrun
    (``parallel/dryrun.py``) on one spawned NCCL rank; (c) the variant
-   studies (composition: graph and eager chains; access: global, lanes and
-   cuda, kernel C's step held to the global step within C's bound 1e-4)
+   studies (composition: graph and eager chains; access: global, gather,
+   lanes and cuda, kernel C's step held to the global step within
+   C's bound 1e-4, the gather step within B's 1e-4)
    at 64^3 cells Q4 and the power kernel on the periodic box of 64^3 cells
    Q4 (16,777,216 DoFs), every ``>>`` line printed; the mesh gallery into a
-   temporary directory; "do output" at 2 refinements.
+   temporary directory; "do output" at 2 refinements;
+24. the ball (experiments/e2e_ball_q4.json) through the sharded
+   unstructured path (``parallel/general_sharded.py``) at world size 1
+   under NCCL, its fine level sharded with kernel F per shard: at 1
+   refinement against the plain CPU path on one device (6 iterations, rel
+   l2 1e-6), then at full size (8,438,273 DoFs): 7 iterations, the solution
+   within 1e-5 of phase 6's single-device solve, two V-cycle applies
+   bit-identical, A-E launched 0 times, F float32 and float64 each launched
+   once by one sharded fine-level apply and one outer apply; its setup,
+   solve, peak memory, B and Gmax, collectives per V-cycle, and the sharded
+   fine level's vmult and FDM apply beside the single-device F and
+   GeneralASMPreconditioner at the same size.
 Phases 9 to 16 accept any converged count at full size (the JAX package has
 none there); their small checks hold the CPU path to the JAX package's CPU
 count (pinned from one JAX run_config each: 0210 and 0300 5 and 8 at 3
@@ -202,6 +215,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -296,6 +310,10 @@ BLOCK_CASES = [
     {"type": "SubMeshPreconditioner", "n overlap": 1},
     {"type": "CGPreconditioner", "n overlap": 1, "n iterations": 2},
 ]
+# phase 6's solution (on the host) and best-of-3 solve time, which phase 24
+# holds its sharded solve to; it solves on one device itself when phase 6
+# did not run
+BALL_REF = {}
 CHAIN_GATE = "DEALII_ASM_TPU_CHAIN_DEGREES"
 SEED = 20261016
 
@@ -1381,6 +1399,7 @@ def run_new_paths(counts, phases) -> None:
     run_benchmark_paths(phases)
     run_breadth_paths(counts, phases)
     run_parallel_paths(counts, phases)
+    run_sharded_ball_phase(phases)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1970,6 +1989,32 @@ def _flagship(refinements: int | None = None) -> dict:
     return params
 
 
+@contextlib.contextmanager
+def one_nccl_rank():
+    """A one-rank NCCL process group of this process on card 0 (NCCL
+    refuses two ranks on one card) and its ``Shards``; destroyed after."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dealii_asm_tpu_torch.parallel.sharding import process_shards
+
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        shards = process_shards(1, "cuda")
+        print(f"  process group: {dist.get_backend()} world size "
+              f"{dist.get_world_size()}, rank device {shards.device}")
+        yield shards
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+
+
 def run_sharded_flagship(counts) -> None:
     """Phase 23 (a): the flagship through ``parallel/driver.py`` at world
     size 1 under NCCL (a one-rank process group in this process), the
@@ -1981,27 +2026,15 @@ def run_sharded_flagship(counts) -> None:
     table printed): 5 iterations, the solution within the solve's 1e-5
     relative of the single-device one.  Then the top sharded level's plain
     applies beside kernels A (float32) and B at the same size."""
-    import tempfile
-
     import torch
-    import torch.distributed as dist
 
     from dealii_asm_tpu_torch.kernels import (LAUNCHES, launch_counts,
                                               reset_launch_counts)
     from dealii_asm_tpu_torch.models.poisson import run_config
-    from dealii_asm_tpu_torch.parallel.sharding import process_shards
     from dealii_asm_tpu_torch.utils.profiling import StageTimer
 
     quiet = lambda *a: None  # noqa: E731
-    store = tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_")
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
-                            rank=0, world_size=1,
-                            device_id=torch.device("cuda", 0))
-    try:
-        shards = process_shards(1, "cuda")
-        print(f"  process group: {dist.get_backend()} world size "
-              f"{dist.get_world_size()}, rank device {shards.device}")
+    with one_nccl_rank() as shards:
         small = _flagship(2)
         small["print timing"] = False
         small["solver"]["best of"] = 1
@@ -2077,9 +2110,6 @@ def run_sharded_flagship(counts) -> None:
               f"DoF) against kernel A {yard.a_ms[0]:.4f} ms; plain FDM "
               f"{f_ms:.4f} ms against kernel B {yard.b_ms[0]:.4f} ms")
         del res, x_ref, mg, top, yard, b
-    finally:
-        dist.destroy_process_group()
-        store.cleanup()
 
 
 def run_drivers_output() -> None:
@@ -2116,11 +2146,17 @@ def run_drivers_output() -> None:
         on_label=lambda label, fn, x: steps.setdefault(label, fn(x)))
     got = launch_counts()
     err = rel_err(steps["cuda"], steps["global"])
+    # the gather route: the per-patch float32 products of the global form
+    # in another order and grouping, B's bound
+    g_err = rel_err(steps["gather"], steps["global"])
     print(f"  access: cuda step against the global step: max rel err "
           f"{err:.3e} (bound {BOUNDS['smoother_step']:g}); kernel C "
-          f"launches {got['smoother_step']}")
+          f"launches {got['smoother_step']}; gather step against the "
+          f"global step {g_err:.3e} (bound {BOUNDS['fdm_patch']:g})")
     if err > BOUNDS["smoother_step"] or got["smoother_step"] <= 0:
         raise Failed("the cuda access step disagrees or did not launch C")
+    if g_err > BOUNDS["fdm_patch"]:
+        raise Failed("the gather access step disagrees")
     del steps
     torch.cuda.empty_cache()
     power_kernel.run_power_kernel({"n subdivision": 36, "fe degree": 4,
@@ -2145,6 +2181,214 @@ def run_drivers_output() -> None:
             raise Failed("gallery or VTU output wrong")
 
 
+def check_shard_tables(dofs, coeff, ranks: int) -> None:
+    """Kernel F on every rank's local tables of a ``ranks``-way
+    ``GeneralPartition`` of ``dofs``, built on the host (no process group):
+    a local vector whose ghost slots are "free" in F's CSR inverse, and
+    shards of a few cells.  ``coeff`` is the (C, 6, Q) cell table in the
+    problem's cell order; each rank takes its slice.  F in both precisions
+    against its plain version on the same inputs, at F's bound; these
+    launches are not counted."""
+    import numpy as np
+    import torch
+
+    from dealii_asm_tpu_torch.fem.lagrange import shape_1d
+    from dealii_asm_tpu_torch.kernels import LAUNCHES
+    from dealii_asm_tpu_torch.kernels.lanes_laplace import (
+        lanes_laplace, lanes_laplace_plain, lanes_tables)
+    from dealii_asm_tpu_torch.parallel.general_sharded import \
+        GeneralPartition
+
+    saved = dict(LAUNCHES)
+    part = GeneralPartition(dofs, ranks)
+    p = dofs.degree
+    s = shape_1d(p, p + 1)
+    gen = torch.Generator().manual_seed(SEED)
+    worst = {}
+    for dt, name in ((torch.float32, "lanes_laplace_f32"),
+                     (torch.float64, "lanes_laplace_f64")):
+        shape_host = torch.tensor(np.stack([s.N, s.D, s.D, s.D]), dtype=dt)
+        shape = shape_host.to("cuda")
+        for r in range(ranks):
+            lo, hi = part.cell_bounds[r], part.cell_bounds[r + 1]
+            t = lanes_tables(part.cells.local_rows(r),
+                             np.zeros(part.n_loc, bool),
+                             coeff[lo:hi].to("cuda", dt).contiguous(), shape,
+                             shape_host, p)
+            u = torch.randn(part.n_loc, generator=gen).to("cuda", dt)
+            err = rel_err(lanes_laplace(u, t), lanes_laplace_plain(u, t))
+            worst[name] = max(worst.get(name, 0.0), err)
+            del t, u
+    LAUNCHES.update(saved)
+    cells = np.diff(part.cell_bounds)
+    print(f"  F on the local tables of {ranks} ranks of {dofs.n_dofs} DoFs "
+          f"({cells.min()}-{cells.max()} cells a rank, B {part.B}, Gmax "
+          f"{part.Gmax}): max rel err f32 {worst['lanes_laplace_f32']:.3e} "
+          f"(bound {BOUNDS['lanes_laplace_f32']:g}), f64 "
+          f"{worst['lanes_laplace_f64']:.3e} (bound "
+          f"{BOUNDS['lanes_laplace_f64']:g})")
+    for name, err in worst.items():
+        if not err <= BOUNDS[name]:
+            raise Failed(f"{name} on {ranks}-rank local tables: {err:.3e}")
+
+
+def run_sharded_ball() -> None:
+    """Phase 24: the ball (experiments/e2e_ball_q4.json) through
+    ``parallel/general_sharded.py`` at world size 1 under NCCL: its fine
+    level sharded (kernel F per shard, float32, and the float64 outer
+    operator), every coarser level replicated.  At 1 refinement the card
+    against the CPU path on one device (6 iterations, rel l2 1e-6); at
+    full size 7 iterations, the solution within 1e-5 of the single-device
+    solve (phase 6's, or solved here first; its solve time beside the
+    sharded one), two V-cycle applies bit-identical, no launch of A-E, F
+    float64 launched by the run; F float32 launched once by one sharded
+    fine-level apply and F float64 once by one apply of the float64 outer
+    operator, built as ``build_sharded_general`` builds it; F on the
+    local tables of 4 ranks at full size and of 12 ranks of the unrefined
+    ball; setup, solve, peak memory, B and Gmax, the collectives per
+    V-cycle and the sharded fine level's vmult and FDM apply beside the
+    single-device F and ``GeneralASMPreconditioner`` at the same size."""
+    import torch
+
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.kernels import (LAUNCHES, launch_counts,
+                                              reset_launch_counts)
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+    from dealii_asm_tpu_torch.models.poisson import run_config
+    from dealii_asm_tpu_torch.ops.laplace_general import \
+        GeneralLaplaceOperator
+    from dealii_asm_tpu_torch.parallel.general_sharded import \
+        ShardedGeneralOperator
+    from dealii_asm_tpu_torch.precond.asm_general import \
+        GeneralASMPreconditioner
+
+    quiet = lambda *a: None  # noqa: E731
+    with open(BALL) as f:
+        full = json.load(f)
+    with one_nccl_rank() as shards:
+        small = copy.deepcopy(full)
+        small.update({"n refinements": 1, "print timing": False})
+        small["solver"]["best of"] = 1
+        r_card = run_config(copy.deepcopy(small), log=quiet, device="cuda",
+                            shards=shards)
+        r_cpu = run_config(copy.deepcopy(small), log=quiet, device="cpu")
+        rel = float((r_card["solution"].cpu() - r_cpu["solution"]).norm()
+                    / r_cpu["solution"].norm())
+        print(f"  sharded ball at 1 refinement ({r_card['n_dofs']} DoFs): "
+              f"card {r_card['it']} its, cpu one device {r_cpu['it']} (JAX "
+              f"6), rel l2 {rel:.3e} (bound 1e-6)")
+        if not (r_card["converged"] and r_card["it"] == r_cpu["it"] == 6
+                and rel <= 1e-6):
+            raise Failed("sharded ball at 1 refinement disagrees")
+        del r_card, r_cpu
+
+        if "solution" not in BALL_REF:
+            torch.cuda.empty_cache()
+            one = run_config(copy.deepcopy(full), log=quiet, device="cuda")
+            BALL_REF.update(solution=one["solution"].cpu(), time=one["time"])
+            del one
+        x_ref, t_one = BALL_REF["solution"], BALL_REF["time"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        shards.reset_traffic()
+        t0 = time.perf_counter()
+        res = run_config(copy.deepcopy(full), log=quiet, device="cuda",
+                         shards=shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, traffic = launch_counts(), dict(shards.traffic)
+        rel = float((res["solution"].cpu() - x_ref).norm() / x_ref.norm())
+        print(f"  sharded ball (world size 1, NCCL): {res['n_dofs']} DoFs, "
+              f"converged={res['converged']}, it={res['it']}, setup "
+              f"{res['setup_time']:.3f} s, best-of-3 solve "
+              f"{res['time']:.4f} s, run_config wall {wall:.3f} s, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; rel l2 to the single-device solution {rel:.3e} (bound "
+              "1e-5)")
+        print(f"  single-device best-of-3 solve in this run {t_one:.4f} s: "
+              f"the sharded solve takes {res['time'] / t_one:.3f}x, "
+              f"{res['time'] - t_one:+.4f} s")
+        print(f"  collectives over the run (setup, warm-up, 3 timed "
+              f"solves): {json.dumps(traffic)}; launch counts: "
+              f"{json.dumps(got)}")
+        if not (res["converged"] and res["it"] == 7 and rel <= 1e-5
+                and res["n_dofs"] == 8_438_273):
+            raise Failed("sharded ball: wrong count or solution")
+        launched = [k for k in KERNELS if k not in BALL_KERNELS and got[k]]
+        if launched:
+            raise Failed(f"kernels launched on the sharded ball: {launched}")
+        if not (got["lanes_laplace_f32"] > 0 and got["lanes_laplace_f64"] > 0):
+            raise Failed("the sharded ball did not launch kernel F in both "
+                         "precisions")
+
+        pre = res["preconditioner"]
+        sop = pre.inner.operators[-1].__self__
+        sasm = pre.inner.smoothers[-1].M.__self__
+        part = sop.part
+        dofs = part.dofs
+        print(f"  partition: B {part.B}, Gmax {part.Gmax} (one rank: the "
+              "ghost block is the one zero slot)")
+        b = torch.sin(torch.arange(part.B, dtype=torch.float64,
+                                   device="cuda"))
+        shards.reset_traffic()
+        y1 = pre.vmult(b)
+        per_cycle = dict(shards.traffic)
+        y2 = pre.vmult(b)
+        same = torch.equal(y1, y2)
+        print(f"  one sharded V-cycle: {json.dumps(per_cycle)}; two applies "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise Failed("sharded ball: repeated V-cycle applies differ")
+        del y1, y2
+        # the float64 outer operator as build_sharded_general builds it
+        # around run_config's operator (assembled here on the card)
+        op64 = GeneralLaplaceOperator(dofs, dtype=torch.float64,
+                                      device="cuda")
+        sop64 = ShardedGeneralOperator(op64, part, shards)
+        reset_launch_counts()
+        sop.vmult(b.float())
+        y64 = sop64.vmult(b)
+        got = launch_counts()
+        err64 = rel_err(sop64.unpad(y64), op64.vmult(sop64.unpad(b)))
+        print(f"  one sharded fine-level apply and one outer apply: F f32 "
+              f"{got['lanes_laplace_f32']}, F f64 {got['lanes_laplace_f64']}"
+              f"; the outer apply against the single-device float64 F: max "
+              f"rel err {err64:.3e} (bound {BOUNDS['lanes_laplace_f64']:g})")
+        if not (got["lanes_laplace_f32"] == 1
+                and got["lanes_laplace_f64"] == 1
+                and err64 <= BOUNDS["lanes_laplace_f64"]):
+            raise Failed("the sharded applies did not launch kernel F")
+        del op64, sop64, y64
+
+        check_shard_tables(dofs, sop.tables.coeff, 4)
+        ball0 = GeneralDofHandler(hyper_ball_balanced(3), 4)
+        check_shard_tables(ball0, GeneralLaplaceOperator(
+            ball0, device="cpu").coeff6, 12)
+
+        saved = dict(LAUNCHES)
+        x = torch.randn(part.B, generator=torch.Generator().manual_seed(
+            SEED)).to(device="cuda", dtype=torch.float32)
+        v_ms = cuda_time(lambda: sop.vmult(x), 10)
+        f_ms = cuda_time(lambda: sasm.vmult(x), 10)
+        del res, pre, sop, sasm
+        torch.cuda.empty_cache()
+        op1 = GeneralLaplaceOperator(dofs, dtype=torch.float32,
+                                     device="cuda")
+        asm1 = GeneralASMPreconditioner(dofs, n_overlap=1,
+                                        weighting_type="symm",
+                                        dtype=torch.float32, device="cuda")
+        u = part.unpad(x.cpu()).to("cuda")
+        v1_ms = cuda_time(lambda: op1.vmult(u), 10)
+        f1_ms = cuda_time(lambda: asm1.vmult(u), 10)
+        LAUNCHES.update(saved)
+        print(f"  sharded fine level at {dofs.n_dofs} DoFs (float32): vmult "
+              f"{v_ms:.4f} ms against single-device F {v1_ms:.4f} ms; FDM "
+              f"{f_ms:.4f} ms against single-device GeneralASMPreconditioner"
+              f" {f1_ms:.4f} ms")
+        del op1, asm1, x, u
+
+
 def run_parallel_paths(counts, phases) -> None:
     """Phase 23 (if named in ``phases``): (a)-(c) above."""
     if 23 not in phases:
@@ -2155,6 +2399,17 @@ def run_parallel_paths(counts, phases) -> None:
     run_sharded_flagship(counts)
     run_drivers_output()
     print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+
+def run_sharded_ball_phase(phases) -> None:
+    """Phase 24 (if named in ``phases``): ``run_sharded_ball``."""
+    if 24 not in phases:
+        return
+    t0 = time.perf_counter()
+    print("== phase 24: the ball through the sharded unstructured path, "
+          "world size 1, NCCL")
+    run_sharded_ball()
+    print(f"  phase 24: {time.perf_counter() - t0:.1f} s")
 
 
 def run_benchmark_paths(phases) -> None:
@@ -2199,7 +2454,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-23) to run after "
+                    help="comma-separated solve phases (9-24) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -2268,10 +2523,12 @@ def main(argv=None) -> int:
             run_solve(KERSHAW, 1, 38, 55, 7_189_057, KERSHAW_KERNELS, counts,
                       slack=1)
             print("== hyperball solve on the card")
-            run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts, slack=1,
-                      check_vcycle=True)
+            ball = run_solve(BALL, 1, 6, 7, 8_438_273, BALL_KERNELS, counts,
+                             slack=1, check_vcycle=True)
+            BALL_REF.update(solution=ball["solution"].cpu(), time=ball["time"])
+            del ball
             run_ladder(counts)
-            run_new_paths(counts, range(9, 24))
+            run_new_paths(counts, range(9, 25))
     except Failed as e:
         print(f"FAIL: {e}")
         return 1

@@ -47,7 +47,9 @@ class LanesTables:
     kernel launch copies into its parameters; ``cell_dofs``: (C, m³)
     int32; ``gather``: the same with -1 at constrained DoFs; ``row_ptr``
     (n+1,) and ``slots`` int32: the CSR inverse of ``cell_dofs`` over the
-    free DoFs (an empty row is a constrained DoF); ``free``: (n,) bool."""
+    free DoFs (an empty row is a constrained DoF); ``free``: (n,) bool, a
+    DoF that no cell holds (a shard's pad slots) counted as constrained,
+    so that the plain version reads the kernel's empty rows as it does."""
 
     coeff: torch.Tensor
     shape: torch.Tensor
@@ -75,6 +77,7 @@ def lanes_tables(cell_dofs: np.ndarray, boundary_mask: np.ndarray,
     dev = coeff.device
     cd = torch.as_tensor(np.ascontiguousarray(cell_dofs, np.int32), device=dev)
     free = torch.as_tensor(~np.asarray(boundary_mask, bool), device=dev)
+    free &= torch.bincount(cd.reshape(-1).long(), minlength=free.numel()) > 0
     gather = torch.where(free[cd.long()], cd, -1)
     row_ptr, slots = csr_inverse(gather, free.numel())
     return LanesTables(coeff, shape, shape_host, cd, gather, row_ptr.int(),

@@ -19,12 +19,14 @@ reduce (ROADMAP queue 3).  The result dict carries the same keys (``it``,
 ``converged``, ``time``, ``solution`` ...), plus ``setup_time``, the first
 solve's ``residuals`` and the ``preconditioner``.
 
-``"n devices"`` > 1 runs the multigrid solve of a structured mesh over that
-many ranks of a ``torch.distributed`` group (``parallel/driver.py``; one
-process per device, launched by torchrun), as the JAX package runs it over
-a device mesh; every rank returns the gathered solution and rank 0 logs.
-The sharded unstructured ball raises NotImplementedError (ROADMAP item
-5b).  ``"do output"`` writes the solution as a VTU file
+``"n devices"`` > 1 runs the multigrid solve over that many ranks of a
+``torch.distributed`` group (one process per device, launched by
+torchrun), as the JAX package runs it over a device mesh: a structured
+mesh through z slabs (``parallel/driver.py``), the unstructured ball
+through cell ranges with its fine level sharded
+(``parallel/general_sharded.py``); every rank returns the gathered
+solution and rank 0 logs.  The outer operator is assembled on the host.
+``"do output"`` writes the solution as a VTU file
 (``utils/vtu.py``), and a ``StageTimer`` passed as ``timer`` times the
 V-cycle's stages, printed under ``"print timing"``.
 """
@@ -49,6 +51,7 @@ from ..ops.laplace_general import GeneralLaplaceOperator
 from ..ops.transfer import TwoLevelTransfer, p_sequence
 from ..ops.transfer_general import GeneralTwoLevelTransfer
 from ..parallel.driver import build_sharded_multigrid
+from ..parallel.general_sharded import build_sharded_general
 from ..parallel.sharding import launched_world_size, process_shards
 from ..precond.adapter import PrecisionAdapter
 from ..precond.factory import create_system_preconditioner
@@ -308,10 +311,6 @@ def _sharding(params: dict, device: torch.device, shards):
     if get_child(params, "preconditioner").get("type", "") != "Multigrid":
         raise ValueError("'n devices' > 1 supports Multigrid "
                          "preconditioners")
-    if get_child(params, "mesh").get("name", "hypercube") == "hyperball":
-        raise NotImplementedError(
-            "'n devices' > 1 on the unstructured ball is not ported yet "
-            "(ROADMAP item 5b: parallel/general_sharded.py)")
     if shards is None:
         return process_shards(n, device)
     if "n devices" in params and n != shards.world:
@@ -377,6 +376,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
 
     precon_p = get_child(params, "preconditioner")
     mg_inner = None  # the float-level multigrid before its adapter
+    sharded = None  # the sharded solve's handles (parallel/driver.py)
     if precon_p.get("type", "") == "Multigrid":
         log("- Create system preconditioner: Multigrid")
         # float MG levels under a float64 outer Krylov, as the reference
@@ -393,6 +393,10 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         if shards is None:
             precon = _build_multigrid(precon_p, family, fe_degree, log,
                                       level_dtype, device, timer)
+        elif isinstance(family, GeneralMeshFamily):
+            sharded = build_sharded_general(
+                precon_p, family, fe_degree, log, level_dtype, op, shards)
+            precon = sharded.mg
         else:
             log(f" - n devices:  {shards.world} (explicit-halo sharding)")
             sharded = build_sharded_multigrid(

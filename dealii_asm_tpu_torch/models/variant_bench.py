@@ -11,13 +11,15 @@ variant benchmarks:
   on the CPU, which has no graphs), a ``#`` line after it the eager time.
 - ``matrix_free_loop_03.cc``, the access sweep (``run_access_bench``,
   :111-171): one smoothing step x + P⁻¹(b − A x) through each route the
-  port has for it on a Cartesian mesh: ``global`` (the plain global FDM
-  around the operator), ``lanes`` (the per-cell FDM of deformed meshes,
+  port has for it on a Cartesian mesh, in the JAX order: ``global`` (the
+  plain global FDM around the operator), ``gather`` (``GatherASM``: the
+  element patches gathered through their index table, the per-patch FDM
+  of the Cartesian collection, a fixed-order scatter; the JAX
+  ``ASMPreconditioner`` with ``access = "gather"``, ``asm.py:670-677``),
+  ``lanes`` (the per-cell FDM of deformed meshes,
   ``CellASMPreconditioner``, forced onto the Cartesian mesh) and ``cuda``
-  (kernel C's fused step; the JAX label ``pallas``).  The JAX ``gather``
-  route (an index-table gather FDM on structured meshes) has no
-  counterpart in the port, whose structured FDM applies are the global
-  and the per-cell forms only, so it is left out.  On the CPU the ``cuda``
+  (kernel C's fused step; the JAX label ``pallas``).  The JAX package runs
+  ``gather`` in XLA, so it is plain torch here.  On the CPU the ``cuda``
   label runs kernel C's plain version.
 
 Output: ``>> label n_dofs n_rep time bytes degree 0 0`` lines
@@ -38,12 +40,16 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device, synchronize
 from ..fem.dofs import DofHandler
+from ..fem.patches import element_patch_indices
 from ..kernels.fdm_patch import fdm_patch_plain
 from ..kernels.smoother_step import smoother_step
 from ..mesh.grid import StructuredMesh
 from ..ops.laplace import LaplaceOperator
-from ..precond.asm import ASMPreconditioner, CellASMPreconditioner
+from ..precond.asm import (ASMPreconditioner, CellASMPreconditioner,
+                           patch_apply)
+from ..precond.asm_general import GeneralASMPreconditioner
 from ..precond.diagonal import DiagonalPreconditioner
+from ..precond.fdm import FDMCollection
 from ..solvers.chebyshev import (ChebyshevPreconditioner, EigenvalueInfo,
                                  RelaxationPreconditioner)
 from .power_kernel import captured
@@ -129,6 +135,45 @@ def run_composition_bench(params: dict, out=None, device=DEFAULT_DEVICE,
     return dofs.n_dofs
 
 
+GATHER_CHUNK_BYTES = 256 << 20  # gathered values a chunk (asm.py:648-653)
+
+
+class GatherASM(GeneralASMPreconditioner):
+    """The index-table route of an element-patch ``ASMPreconditioner`` on
+    a Cartesian mesh (the JAX ``access = "gather"`` apply with no global or
+    dense form, ``asm.py:670-677``): the (P, m^dim) patch index table
+    (``fem/patches.py``, constrained DoFs sent to the zero slot) and the
+    Cartesian collection's per-patch FDM through the unstructured apply,
+    the patches gathered in equal chunks of at most ``GATHER_CHUNK_BYTES``
+    of values, sized by the dtype's itemsize."""
+
+    def __init__(self, asm: ASMPreconditioner):
+        dofs, n = asm.dofs, asm.dofs.n_dofs
+        idx = element_patch_indices(dofs, asm.n_overlap).astype(np.int64)
+        idx = np.where(dofs.boundary_mask[np.minimum(idx, n - 1)]
+                       | (idx >= n), n, idx)
+        super().__init__(dofs, asm.n_overlap, asm.weighting_type, asm.dtype,
+                         asm.device, collection=FDMCollection(
+                             [V for V, _ in asm.percoord],
+                             [lam for _, lam in asm.percoord],
+                             dofs.mesh.cell_multi_index()), patch_idx=idx)
+
+    def chunk_bounds(self, itemsize: int) -> np.ndarray:
+        """The patch ranges of the chunks, as the JAX package splits them."""
+        P, L = self.patch_idx.shape
+        n_chunks = max(1, -(-L * P * itemsize // GATHER_CHUNK_BYTES))
+        return np.linspace(0, P, n_chunks + 1).astype(int)
+
+    def local_solves(self, xpad: torch.Tensor, dt) -> torch.Tensor:
+        shape = (-1,) + (self.m,) * self.dim
+        y = xpad.new_empty((self.patch_idx.shape[0],) + shape[1:])
+        bounds = self.chunk_bounds(xpad.element_size())
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            W = xpad[self.patch_idx[lo:hi]].reshape(shape)
+            y[lo:hi] = patch_apply(self, W, dt, slice(lo, hi))
+        return y
+
+
 def access_routes(dofs, op, b, n_overlap: int = 1) -> dict:
     """label → one smoothing step y ↦ y + P⁻¹(b − A y) through each of the
     port's FDM routes (``cuda`` only where kernel C tiles the mesh)."""
@@ -138,8 +183,10 @@ def access_routes(dofs, op, b, n_overlap: int = 1) -> dict:
     lanes = CellASMPreconditioner(dofs, n_overlap=n_overlap,
                                   weighting_type="symm", dtype=DTYPE,
                                   device=device)
+    gather = GatherASM(asm)
     routes = {
         "global": lambda y: y + fdm_patch_plain(b - op.vmult(y), asm.tables),
+        "gather": lambda y: y + gather.vmult(b - op.vmult(y)),
         "lanes": lambda y: y + lanes.vmult(b - op.vmult(y))}
     if asm.fused:
         routes["cuda"] = lambda y: smoother_step(y, b, op.tables, asm.tables,

@@ -153,8 +153,9 @@ def build_sharded_multigrid(precon_p: dict, family, fe_degree: int, log,
     whole by the standard factory on the rank's device; the rest become
     ``ShardedLattice`` levels.  ``outer_op`` is the finest level's host
     operator in the outer dtype (the one ``run_config`` assembles b with);
-    the outer Krylov loop runs over its lattice, and a compact mapping type
-    raises there.  ``timer`` goes to the outer V-cycle."""
+    the outer Krylov loop runs over its lattice, or, for a compact mapping
+    type, over the lattice of the family's merged float64 operator.
+    ``timer`` goes to the outer V-cycle."""
     from ..models.poisson import mg_level_layout
 
     device = shards.device
@@ -226,7 +227,16 @@ def build_sharded_multigrid(precon_p: dict, family, fe_degree: int, log,
     mg = Multigrid([ops[k - 1]] + [sl.vmult for sl in sls], sh_smoothers,
                    sh_transfers, replicated_fn, one_sided=one_sided,
                    n_coarse_cycles=n_coarse_cycles, timer=timer)
-    # the float64 outer operator: a second lattice of the same padded layout
-    fine_outer = (sls[-1] if outer_op.dtype == dtype else
-                  ShardedLattice(outer_op, None, shards))
+    # the float64 outer operator: a second lattice of the same padded layout.
+    # The lattice takes the merged form: for a compact mapping type the
+    # outer lattice is the family's merged float64 operator, as in the JAX
+    # package (``driver.py:258-262``), and b still comes from the compact one
+    if outer_op.dtype == dtype:
+        fine_outer = sls[-1]
+    else:
+        if getattr(outer_op, "compact", None):
+            log(" - sharded outer operator: the merged float64 form (the "
+                "compact mapping type assembles b only)")
+            outer_op = family.operator(dofs_list[-1], outer_op.dtype, HOST)
+        fine_outer = ShardedLattice(outer_op, None, shards)
     return ShardedMGSolve(mg, fine_outer, reduction)

@@ -11,7 +11,8 @@ replicates below 600 DoFs on 8 devices).
 ``spawn`` starts N ranks with ``torch.multiprocessing`` and a ``file://``
 store in a temporary directory (gloo on the CPU, NCCL on CUDA with rank r
 on ``cuda:r``), calls ``fn(shards, *args)`` on each, and returns the ranks'
-results; the CPU tests and ``chip_smoke.py`` use it.  Under torchrun the
+results; the CPU tests and ``chip_smoke.py`` use it.  ``Ranks`` starts
+them without waiting, so the caller can work while they run.  Under torchrun the
 process group comes from the environment.
 
     python -m dealii_asm_tpu_torch.parallel.dryrun 4 --device cpu
@@ -53,19 +54,39 @@ def _rank_main(rank, world, store, fn, args, out_dir, device, threads):
         dist.destroy_process_group()
 
 
+class Ranks:
+    """n ranks running ``fn(shards, *args)`` in new processes (``fn`` must
+    be importable by name, its results picklable); ``join`` waits for them
+    and returns their results, and raises if a rank failed."""
+
+    def __init__(self, n: int, fn, args=(), device: str = "cpu",
+                 threads: int = 1):
+        self.n = n
+        self._tmp = tempfile.mkdtemp(prefix="dealii_asm_tpu_torch_ranks_")
+        try:
+            self._ctx = mp.spawn(
+                _rank_main, args=(n, os.path.join(self._tmp, "store"), fn,
+                                  args, self._tmp, device, threads),
+                nprocs=n, join=False)
+        except BaseException:
+            shutil.rmtree(self._tmp, ignore_errors=True)
+            raise
+
+    def join(self) -> list:
+        try:
+            while not self._ctx.join():
+                pass
+            return [torch.load(os.path.join(self._tmp, f"{r}.pt"),
+                               map_location="cpu", weights_only=False)
+                    for r in range(self.n)]
+        finally:
+            shutil.rmtree(self._tmp, ignore_errors=True)
+
+
 def spawn(n: int, fn, args=(), device: str = "cpu", threads: int = 1):
     """[fn(shards, *args) for each of n ranks], run in n new processes
-    (``fn`` must be importable by name, its results picklable); a rank
-    that fails raises here."""
-    tmp = tempfile.mkdtemp(prefix="dealii_asm_tpu_torch_ranks_")
-    try:
-        mp.spawn(_rank_main, args=(n, os.path.join(tmp, "store"), fn, args,
-                                   tmp, device, threads), nprocs=n,
-                 join=True)
-        return [torch.load(os.path.join(tmp, f"{r}.pt"), map_location="cpu",
-                           weights_only=False) for r in range(n)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    (``Ranks`` joined at once)."""
+    return Ranks(n, fn, args, device, threads).join()
 
 
 # "replicate below" 1000 shards the 17^3 and 33^3 levels: a halo may not

@@ -426,13 +426,14 @@ def work_dtype(dtype, src: torch.Tensor):
     return dtype
 
 
-def patch_apply(module: nn.Module, W: torch.Tensor, dtype) -> torch.Tensor:
+def patch_apply(module: nn.Module, W: torch.Tensor, dtype,
+                rows: slice = slice(None)) -> torch.Tensor:
     """``cell_fdm_apply`` with ``module``'s tables (``register_patch_tables``)
-    in ``dtype``."""
-    V = [getattr(module, f"V{d}").to(dtype) for d in range(module.dim)]
+    in ``dtype``; W holds the patches ``rows`` of them."""
+    V = [getattr(module, f"V{d}")[rows].to(dtype) for d in range(module.dim)]
     if module.dtype == torch.bfloat16:
-        return cell_fdm_apply(W, V, denom=module.denom.to(dtype))
-    return cell_fdm_apply(W, V, module.inv_denom)
+        return cell_fdm_apply(W, V, denom=module.denom[rows].to(dtype))
+    return cell_fdm_apply(W, V, module.inv_denom[rows])
 
 
 class CellASMPreconditioner(nn.Module):

@@ -50,12 +50,15 @@ class GeneralASMPreconditioner(nn.Module):
     ``collection`` (optional): the NumPy ``FDMCollection`` (eigvecs[d]
     (U_d, m, m), eigvals[d] (U_d, m), ids (P, dim)); ``ras_mask``
     (optional): the (P, m³) RAS mask; by default both are built here
-    (``interop.py`` passes the JAX ones).
+    (``interop.py`` passes the JAX ones).  ``patch_idx`` (optional, with
+    ``collection``): the (P, m^dim) patch index table itself, constrained
+    and missing entries n_dofs (the access study's Cartesian element
+    patches, ``models/variant_bench.py``).
     """
 
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
                  dtype=torch.float64, device=DEFAULT_DEVICE, collection=None,
-                 patch_type: str = "element", ras_mask=None):
+                 patch_type: str = "element", ras_mask=None, patch_idx=None):
         super().__init__()
         mesh = dofs.mesh
         self.dofs = dofs
@@ -71,7 +74,9 @@ class GeneralASMPreconditioner(nn.Module):
         self.dtype = dtype
         self.device = resolve_device(device)
         n = dofs.n_dofs
-        if patch_type == "vertex":
+        if patch_idx is not None:
+            idx = patch_idx
+        elif patch_type == "vertex":
             idx, extents = general_vertex_patch_indices(dofs)
             if idx.shape[0] == 0:
                 raise NoVertexPatches(
@@ -116,16 +121,18 @@ class GeneralASMPreconditioner(nn.Module):
         w = self.weights.to(dt)
         if self.weighting_type in ("pre", "symm"):
             x = x * w
-        xpad = torch.cat([x, x.new_zeros(1)])
-        m, dim = self.m, self.dim
-        W = xpad[self.patch_idx].reshape((-1,) + (m,) * dim)
-        y = patch_apply(self, W, dt)
+        y = self.local_solves(torch.cat([x, x.new_zeros(1)]), dt)
         if self.ras_mask is not None:
             y = y.reshape(self.ras_mask.shape) * self.ras_mask.to(dt)
         dst = self._scatter(y)
         if self.weighting_type in ("post", "symm"):
             dst = dst * w
         return dst.to(src.dtype)
+
+    def local_solves(self, xpad: torch.Tensor, dt) -> torch.Tensor:
+        """The (P, m, ..., m) patch solves of the zero-slot padded vector."""
+        W = xpad[self.patch_idx].reshape((-1,) + (self.m,) * self.dim)
+        return patch_apply(self, W, dt)
 
     def forward(self, src):
         return self.vmult(src)

@@ -145,3 +145,127 @@ def benchmark_lines(shards, params):
                   on_label=lambda rec, fn, src0: applied.append(
                       _padded(shards, fn(src0))))
     return out.getvalue(), applied
+
+
+# -- the sharded unstructured ball (parallel/general_sharded.py) -------------
+
+F32 = torch.float32
+
+
+def ball_dofs(degree=2, refinements=1, dim=3):
+    """The balanced hyperball refined ``refinements`` times at ``degree``
+    (tests/test_general_sharded.py's mesh: 3D, once refined, Q2)."""
+    from dealii_asm_tpu_torch.fem.general_dofs import GeneralDofHandler
+    from dealii_asm_tpu_torch.mesh.unstructured import hyper_ball_balanced
+
+    mesh = hyper_ball_balanced(dim)
+    for _ in range(refinements):
+        mesh = mesh.refine()
+    return GeneralDofHandler(mesh, degree)
+
+
+def _general_applies(shards, x):
+    """The sharded operator (float64, float32), ASM (symm, post, ras), the
+    p- and h-transfers and the 2D operator, each applied twice: name →
+    (gathered result in the problem's numbering, repeat bit-identical)."""
+    from dealii_asm_tpu_torch.ops.laplace_general import \
+        GeneralLaplaceOperator
+    from dealii_asm_tpu_torch.ops.transfer_general import \
+        GeneralTwoLevelTransfer
+    from dealii_asm_tpu_torch.parallel.general_sharded import (
+        GeneralPartition, ShardedGeneralASM, ShardedGeneralOperator,
+        ShardedGeneralTransfer)
+    from dealii_asm_tpu_torch.precond.asm_general import \
+        GeneralASMPreconditioner
+
+    def twice(obj, apply, v, out_pad=True):
+        y, again = apply(v), apply(v)
+        return ((obj.unpad(y) if out_pad else y).double().numpy(),
+                torch.equal(y, again))
+
+    out = {}
+    dofs = ball_dofs()
+    part = GeneralPartition(dofs, shards.world)
+    op64 = GeneralLaplaceOperator(dofs, dtype=F64, device="cpu")
+    for name, dt in (("f64", F64), ("f32", F32)):
+        sop = ShardedGeneralOperator(op64, part, shards, dt)
+        out[f"vmult_{name}"] = twice(sop, sop.vmult, sop.pad(_t(x["u"])))
+    # the slab's pad slots (past the rank's owned count) filled with ones:
+    # the product is zero there and unchanged elsewhere
+    slab = sop.pad(_t(x["u"]))
+    pads = torch.arange(part.B) >= int(part.n_own[shards.rank])
+    y, y1 = sop.vmult(slab), sop.vmult(torch.where(pads, 1.0, slab))
+    out["pads"] = (int(pads.sum()), bool((y1[pads] == 0).all()),
+                   torch.equal(y1[~pads], y[~pads]))
+    for wt in ("symm", "post", "ras"):
+        asm = GeneralASMPreconditioner(dofs, n_overlap=1, weighting_type=wt,
+                                       dtype=F32, device="cpu")
+        sasm = ShardedGeneralASM(asm, part, shards)
+        out[f"asm_{wt}"] = twice(sasm, sasm.vmult, sasm.pad(_t(x["u"])))
+    # p: Q1 → Q2 on the unrefined ball; h: the ball → its refinement, Q2
+    for kind, coarse, fine in (("p", ball_dofs(1, 0), ball_dofs(2, 0)),
+                               ("h", ball_dofs(2, 0), dofs)):
+        tr = GeneralTwoLevelTransfer(coarse, fine, dtype=F32, device="cpu")
+        st = ShardedGeneralTransfer(tr, GeneralPartition(fine, shards.world),
+                                    shards)
+        out[f"prolongate_{kind}"] = twice(st, st.prolongate,
+                                          _t(x[f"uc_{kind}"]).float())
+        out[f"restrict_{kind}"] = twice(st, st.restrict,
+                                        st.pad(_t(x[f"rf_{kind}"])), False)
+    d2 = ball_dofs(2, 1, dim=2)
+    op2 = GeneralLaplaceOperator(d2, dtype=F64, device="cpu")
+    s2 = ShardedGeneralOperator(op2, GeneralPartition(d2, shards.world),
+                                shards)
+    out["vmult_2d"] = twice(s2, s2.vmult, s2.pad(_t(x["u2d"])))
+    return out
+
+
+def _ball_runs(shards, configs):
+    """run_config of each config: (it, converged, solution, n_dofs, two
+    V-cycle applies bit-identical)."""
+    from dealii_asm_tpu_torch.models.poisson import run_config
+
+    res = []
+    for params in configs:
+        r = run_config(params, log=lambda *_: None, device="cpu")
+        pre = r["preconditioner"]
+        top = pre.inner.operators[-1].__self__  # the sharded fine level
+        b = torch.sin(torch.arange(top.n_local, dtype=F64)
+                      + 7.0 * shards.rank)
+        res.append((r["it"], r["converged"], r["solution"].numpy(),
+                    r["n_dofs"], torch.equal(pre.vmult(b), pre.vmult(b))))
+    return res
+
+
+def _compact_outer(shards, params, u):
+    """run_config of a compact "operator mapping type" config with float32
+    levels (it, converged), and the sharded outer operator that
+    ``build_sharded_multigrid`` builds for it applied to ``u`` beside the
+    single-device merged float64 operator's product."""
+    from dealii_asm_tpu_torch.models.poisson import (make_mesh_family,
+                                                     run_config)
+    from dealii_asm_tpu_torch.parallel.driver import build_sharded_multigrid
+
+    r = run_config(params, log=lambda *_: None, device="cpu")
+    family = make_mesh_family(params)
+    dofs = family.dofs_at(family.n_refinements, params["degree"])
+    compact = family.operator(dofs, F64, "cpu",
+                              params["operator mapping type"])
+    sh = build_sharded_multigrid(params["preconditioner"], family,
+                                 params["degree"], lambda *_: None, F32,
+                                 compact, shards)
+    merged = family.operator(dofs, F64, "cpu")
+    got = sh.unpad(sh.vmult(sh.pad(_t(u)))).numpy()
+    return (r["it"], r["converged"], bool(compact.compact), got,
+            merged.vmult(_t(u)).numpy())
+
+
+def general_sharded_checks(shards, x, configs, compact=None):
+    """One spawn's checks of the sharded ball: the applies, the run_config
+    solves of ``configs`` and, given ``compact`` = (params, u), the compact
+    mapping type's structured solve and outer operator."""
+    out = {"applies": _general_applies(shards, x),
+           "runs": _ball_runs(shards, configs)}
+    if compact is not None:
+        out["compact"] = _compact_outer(shards, *compact)
+    return out

@@ -14,10 +14,10 @@ Contract:
   the V-cycle gives the same bits; ``trace`` writes a Chrome trace of an
   apply and tabulates its operations;
 - ``power_kernel`` and ``variant_bench`` print the JAX labels (the JAX
-  access label ``pallas`` is the port's ``cuda``; the JAX ``gather`` route
-  has no counterpart), with the JAX n_dofs, repetition and size fields;
-  on the CPU every label runs eagerly.  Their applies agree with the JAX
-  ones in float32 to 1e-5 (relative L2).
+  access label ``pallas`` is the port's ``cuda``), with the JAX n_dofs,
+  repetition and size fields; on the CPU every label runs eagerly.  Their
+  applies agree with the JAX ones in float32 to 1e-5 (relative L2); the
+  access study's ``gather`` step with the JAX ``gather`` route's.
 """
 
 import contextlib
@@ -227,9 +227,9 @@ def test_variant_bench_labels_and_steps_match_jax():
         SMALL, out=buf, device="cpu",
         on_label=lambda label, fn, x: steps.setdefault(label, fn(x)))
     got = _lines(buf.getvalue())
-    # the JAX labels global, gather, lanes, pallas: no gather route here,
-    # and kernel C's fused step is ``cuda``
-    assert [g[1] for g in got] == ["global", "lanes", "cuda"]
+    # the JAX labels global, gather, lanes, pallas: kernel C's fused step
+    # is ``cuda``
+    assert [g[1] for g in got] == ["global", "gather", "lanes", "cuda"]
     assert all(g[2:4] == [str(n), "2"] and g[5:] == ["4", "3", "0", "0"]
                for g in got)
     # one step y + P⁻¹(b − A y) from the JAX global route on the same x, b
@@ -240,5 +240,35 @@ def test_variant_bench_labels_and_steps_match_jax():
     x = jnp.asarray(rng.standard_normal(n), jnp.float32)
     b = jnp.asarray(rng.standard_normal(n), jnp.float32)
     ref_step = x + asm.vmult(b - op.vmult(x))
-    for label in ("global", "lanes", "cuda"):
+    for label in ("global", "gather", "lanes", "cuda"):
         assert _rel(steps[label].numpy(), ref_step) < 1e-5, label
+    # the JAX gather route (variant_bench.py:135-142) on the same x, b
+    gather = JaxASM(dofs, n_overlap=1, weighting_type="symm",
+                    dtype=jnp.float32)
+    gather.access, gather.global_fdm, gather.dense = "gather", None, None
+    gather_step = x + gather.vmult_traceable(b - op.vmult(x))
+    assert _rel(steps["gather"].numpy(), gather_step) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_route_in_chunks_matches_jax(monkeypatch, dtype):
+    """The access study's ``gather`` route with its chunk size forced down
+    to 512 bytes: 8 patches of 64 values make 4 chunks in float32 and 8 in
+    float64 (sized by the itemsize), and the apply still matches the JAX
+    ``gather`` route (``variant_bench.py:135-142``)."""
+    monkeypatch.setattr(variant_bench, "GATHER_CHUNK_BYTES", 512)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    asm = variant_bench.ASMPreconditioner(
+        DofHandler(StructuredMesh(3, (2, 2, 2)), 3), n_overlap=1,
+        weighting_type="symm", dtype=tdt, device="cpu")
+    gather = variant_bench.GatherASM(asm)
+    itemsize = torch.empty((), dtype=tdt).element_size()
+    assert list(gather.chunk_bounds(itemsize)) == list(
+        range(0, 9, 2 if dtype == "float32" else 1))
+    jasm = JaxASM(JaxDofHandler(JaxMesh(3, (2, 2, 2)), 3), n_overlap=1,
+                  weighting_type="symm", dtype=jdt)
+    jasm.access, jasm.global_fdm, jasm.dense = "gather", None, None
+    x = np.random.default_rng(3).standard_normal(asm.dofs.n_dofs)
+    ref = jasm.vmult_traceable(jnp.asarray(x, jdt))
+    got = gather.vmult(torch.as_tensor(x, dtype=tdt))
+    assert _rel(got.numpy(), ref) < (1e-5 if dtype == "float32" else 1e-12)

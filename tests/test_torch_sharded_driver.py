@@ -14,8 +14,8 @@ its solution agrees to rtol 1e-7, atol 1e-9.  The sharded benchmark's
 at the same device count, ghost columns ``2·hw·plane`` included
 (2·4·16·32 for the Q4 vmult at 14 subdivisions on 2 devices); each rank
 count is one spawn for the configs and the benchmark.  Without a process group, several devices raise with the
-torchrun command; the CUDA default raises without a GPU; the unstructured
-ball raises NotImplementedError naming ROADMAP item 5b.
+torchrun command; the CUDA default raises without a GPU.  The sharded
+unstructured ball is tests/test_torch_general_sharded.py's.
 """
 
 import copy
@@ -129,10 +129,3 @@ def test_cuda_default_raises_without_a_gpu():
     cfg = dict(_fdm_top_level(), **{"n devices": 2})
     with pytest.raises(RuntimeError, match="is_available"):
         run_config(cfg, log=_quiet)
-
-
-def test_unstructured_ball_raises_naming_its_roadmap_item():
-    cfg = dict(_cfg(**{"degree": 2, "n refinements": 1}),
-               **{"n devices": 2, "mesh": {"name": "hyperball"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5b"):
-        run_config(cfg, log=_quiet, device="cpu")
