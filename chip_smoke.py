@@ -167,8 +167,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ranks on one card): at 2 refinements with its 17^3 level sharded against
    the plain CPU path on one device (4 iterations, rel l2 1e-6), then at
    full size with levels 4-6 sharded: 5 iterations, the solution within
-   1e-5 of the single-device solve, which runs first with a StageTimer whose
-   level x stage table is printed; its collectives, the replicated tail's
+   1e-5 of the single-device solve, which runs first with its warm-up
+   traced ("print timing": the tracer of utils/profiling.py) and its
+   level x stage table printed; its collectives, the replicated tail's
    launches (E, F and D none), and the top sharded level's plain applies
    beside kernels A and B at the same size; (b) the dryrun
    (``parallel/dryrun.py``) on one spawned NCCL rank; (c) the variant
@@ -2022,16 +2023,16 @@ def run_sharded_flagship(counts) -> None:
     replicated tail of the single-device factory.  First at 2 refinements
     with the 17^3 level sharded ("replicate below" 1000) against the plain
     CPU path on one device (the JAX package's count 4); then at full size
-    beside the single-device solve with a ``StageTimer`` (its level x stage
-    table printed): 5 iterations, the solution within the solve's 1e-5
-    relative of the single-device one.  Then the top sharded level's plain
+    beside the single-device solve, its set-up and warm-up traced under
+    "print timing" (the tracer's level x stage table printed): 5
+    iterations, the solution within the solve's 1e-5 relative of the
+    single-device one.  Then the top sharded level's plain
     applies beside kernels A (float32) and B at the same size."""
     import torch
 
     from dealii_asm_tpu_torch.kernels import (LAUNCHES, launch_counts,
                                               reset_launch_counts)
     from dealii_asm_tpu_torch.models.poisson import run_config
-    from dealii_asm_tpu_torch.utils.profiling import StageTimer
 
     quiet = lambda *a: None  # noqa: E731
     with one_nccl_rank() as shards:
@@ -2052,14 +2053,12 @@ def run_sharded_flagship(counts) -> None:
                 and rel <= 1e-6):
             raise Failed("sharded flagship at 2 refinements disagrees")
 
-        timer = StageTimer()
         torch.cuda.empty_cache()
-        ref = run_config(_flagship(), log=quiet, device="cuda", timer=timer)
-        print(f"  single-device flagship with the stage timer: it "
-              f"{ref['it']}, best-of-3 solve {ref['time']:.4f} s (each "
-              "stage synchronized); the level x stage table above (run_config"
-              " prints it under \"print timing\") sums the seconds over the "
-              "warm-up and 3 timed solves")
+        ref = run_config(_flagship(), log=quiet, device="cuda")
+        print(f"  single-device flagship: it {ref['it']}, best-of-3 solve "
+              f"{ref['time']:.4f} s (untraced); the level x stage table "
+              "above (run_config prints it under \"print timing\") sums the"
+              " ms of the traced warm-up solve")
         x_ref = ref["solution"]
         del ref
         torch.cuda.empty_cache()

@@ -3,7 +3,9 @@
 Carried over from ``dealii_asm_tpu/fem/dofs.py`` (the part the port uses):
 the global numbering is the lexicographic node lattice (x fastest, grid
 shape (Nz, Ny, Nx)), Dirichlet constraints are a boolean mask, and
-constrained rows of the operators act as identity.
+constrained rows of the operators act as identity.  The tables are built
+on first use (inside an operator's set-up); while tracing is on
+(``utils/profiling.py``) each build is the span "setup.dofs".
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from functools import cached_property
 import numpy as np
 
 from ..mesh.grid import StructuredMesh
+from ..utils.profiling import spanned
 from .lagrange import gauss_lobatto_points
 
 
@@ -65,6 +68,7 @@ class DofHandler:
         return (self.degree + 1) ** self.mesh.dim
 
     @cached_property
+    @spanned("setup.dofs")
     def cell_dofs(self) -> np.ndarray:
         """(C, (p+1)^dim) int32 global node ids of each cell's lattice, local
         lexicographic (x fastest), wrapped on a periodic axis
@@ -84,6 +88,7 @@ class DofHandler:
         return out.astype(np.int32)
 
     @cached_property
+    @spanned("setup.dofs")
     def boundary_mask(self) -> np.ndarray:
         """(n_dofs,) bool: True on a non-periodic domain boundary."""
         mask = np.zeros(self.n_dofs, dtype=bool)

@@ -11,6 +11,9 @@ applied, so the operators run plain gathers and scatters.
 Canonical orientations: a line runs from its lower global vertex id to the
 higher; a quad's origin is its corner with the smallest id, its u-axis
 points to the origin's adjacent corner with the smaller id.
+
+The tables are built on first use; while tracing is on
+(``utils/profiling.py``) each build is the span "setup.dofs".
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 
 from ..mesh.unstructured import (VERTEX_COORDS, UnstructuredMesh,
                                  edge_vertices, face_vertices)
+from ..utils.profiling import spanned
 
 
 @dataclass(frozen=True)
@@ -32,6 +36,7 @@ class GeneralDofHandler:
     # -- entity enumeration --------------------------------------------------
 
     @cached_property
+    @spanned("setup.dofs")
     def _lines(self):
         """(cell line ids (C, E), flip (C, E), n_lines); flip where the
         cell's local edge direction runs against the canonical one."""
@@ -45,6 +50,7 @@ class GeneralDofHandler:
         return inv.reshape(v0.shape).astype(np.int64), v0 > v1, len(uniq)
 
     @cached_property
+    @spanned("setup.dofs")
     def _quads(self):
         """(cell quad ids (C, 6), face corners (C, 6, 4) in face-lex order,
         n_quads); 3D only."""
@@ -56,6 +62,7 @@ class GeneralDofHandler:
         return inv.reshape(corners.shape[:2]).astype(np.int64), corners, len(uniq)
 
     @cached_property
+    @spanned("setup.dofs")
     def _offsets(self):
         p = self.degree
         mesh = self.mesh
@@ -79,6 +86,7 @@ class GeneralDofHandler:
     # -- the index table -----------------------------------------------------
 
     @cached_property
+    @spanned("setup.dofs")
     def cell_dofs(self) -> np.ndarray:
         """(C, (p+1)^dim) int32 global DoFs per cell, local lexicographic
         (x fastest), orientation permutations applied; vectorised over
@@ -142,6 +150,7 @@ class GeneralDofHandler:
         return out.astype(np.int32)
 
     @cached_property
+    @spanned("setup.dofs")
     def boundary_mask(self) -> np.ndarray:
         """(n_dofs,) True where the DoF lies on a boundary face."""
         p = self.degree
@@ -161,6 +170,7 @@ class GeneralDofHandler:
         return mask
 
     @cached_property
+    @spanned("setup.dofs")
     def points(self) -> np.ndarray:
         """(n_dofs, dim) physical support points (isoparametric GLL
         lattice); shared DoFs get the same coordinates from every cell."""

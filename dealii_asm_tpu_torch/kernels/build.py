@@ -5,7 +5,8 @@ one nvcc process per source, all started together, then linked into
 ``dealii_asm_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, and loaded with ``ctypes``.  A later process with the same sources
 reuses the library.  No fallback: a missing ``nvcc`` or a failed compile
-raises.
+raises.  While tracing is on, the first load (with the build) is the span
+"setup.kernels".
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from ..utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -146,11 +149,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _loaded
     if _loaded is None:
-        lib = ctypes.CDLL(str(build(verbose)))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with span("setup.kernels"):
+            lib = ctypes.CDLL(str(build(verbose)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _loaded = lib
     return _loaded
 

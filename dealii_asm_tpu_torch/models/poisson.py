@@ -27,8 +27,12 @@ through cell ranges with its fine level sharded
 (``parallel/general_sharded.py``); every rank returns the gathered
 solution and rank 0 logs.  The outer operator is assembled on the host.
 ``"do output"`` writes the solution as a VTU file
-(``utils/vtu.py``), and a ``StageTimer`` passed as ``timer`` times the
-V-cycle's stages, printed under ``"print timing"``.
+(``utils/vtu.py``).  Under ``"print timing"`` the set-up and the warm-up
+solve run with the tracer on (``utils/profiling.py``; the timed solves
+after them run untraced), and its level × stage table of the warm-up
+solve's V-cycles is printed, the inner levels of a nested (ph or hp)
+layout too; a caller that traces gets the set-up steps as the spans
+``profiling.SETUP``.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from ..solvers.krylov import cg, gmres
 from ..solvers.krylov import solve as krylov_solve
 from ..solvers.refinement import refined_solve
 from ..utils.config import get_child, get_param
-from ..utils.profiling import StageTimer
+from ..utils.profiling import paused, span, tracing
 from ..utils.table import ConvergenceTable
 from ..utils.vtu import write_vtu
 
@@ -99,7 +103,9 @@ class MeshFamily:
         return self.n_refinements + 1
 
     def dofs_at(self, refinement: int, degree: int) -> DofHandler:
-        return DofHandler(self.mesh_at(refinement), degree)
+        with span("setup.mesh"):
+            mesh = self.mesh_at(refinement)
+        return DofHandler(mesh, degree)
 
     def operator(self, dofs, dtype, device,
                  mapping_type: str = "") -> LaplaceOperator:
@@ -142,8 +148,9 @@ class GeneralMeshFamily:
     def dofs_at(self, refinement: int, degree: int) -> GeneralDofHandler:
         key = (refinement, degree)
         if key not in self._dofs:
-            self._dofs[key] = GeneralDofHandler(self.mesh_at(refinement),
-                                                degree)
+            with span("setup.mesh"):
+                mesh = self.mesh_at(refinement)
+            self._dofs[key] = GeneralDofHandler(mesh, degree)
         return self._dofs[key]
 
     def operator(self, dofs, dtype, device,
@@ -230,18 +237,19 @@ def mg_level_layout(precon_p: dict, family, fe_degree: int,
 
 
 def _build_multigrid(params: dict, family, fe_degree: int, log,
-                     dtype, device, timer: StageTimer | None = None
-                     ) -> Multigrid:
+                     dtype, device) -> Multigrid:
     levels, intermediate = mg_level_layout(params, family, fe_degree, log)
     ops, dofs_list = [], []
     for r, d in levels:
         dofs = family.dofs_at(r, d)
-        ops.append(family.operator(dofs, dtype, device))
+        with span("setup.operator"):
+            ops.append(family.operator(dofs, dtype, device))
         dofs_list.append(dofs)
         log(f"- Create operator:\n  - n cells:          "
             f"{dofs.mesh.n_cells_total}\n  - n dofs:           {dofs.n_dofs}\n")
-    transfers = [family.transfer(dofs_list[i], dofs_list[i + 1], dtype, device)
-                 for i in range(len(levels) - 1)]
+    with span("setup.transfer"):
+        transfers = [family.transfer(dofs_list[i], dofs_list[i + 1], dtype,
+                                     device) for i in range(len(levels) - 1)]
 
     smoother_p = get_child(params, "mg smoother")
     interm_p = get_child(params, "mg intermediate smoother")
@@ -253,7 +261,8 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
     def make_smoother(level: int, p: dict):
         log(f"- Setting up smoother on level {level}\n")
         try:
-            return create_system_preconditioner(ops[level], p, log)
+            with span("setup.smoother", level):
+                return create_system_preconditioner(ops[level], p, log)
         except NoVertexPatches as e:
             # the hp layout's p-levels on a 1-cell mesh: the JAX package
             # raises a ValueError there too (``asm.py:438``)
@@ -263,8 +272,9 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
                 f"vertex ({e})") from e
 
     log("- Setting up coarse-grid solver on level 0\n")
-    coarse = create_system_preconditioner(
-        ops[0], get_child(params, "mg coarse grid solver"), log)
+    with span("setup.coarse"):
+        coarse = create_system_preconditioner(
+            ops[0], get_child(params, "mg coarse grid solver"), log)
     if intermediate > 0:
         inner = Multigrid(ops[: intermediate + 1],
                           [make_smoother(l, interm_p)
@@ -275,12 +285,10 @@ def _build_multigrid(params: dict, family, fe_degree: int, log,
                          [make_smoother(l, smoother_p)
                           for l in range(intermediate + 1, len(levels))],
                          transfers[intermediate:], inner.vmult,
-                         one_sided=one_sided, n_coarse_cycles=n_coarse_cycles,
-                         timer=timer)
+                         one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
     smoothers = [make_smoother(l, smoother_p) for l in range(1, len(levels))]
     return Multigrid(ops, smoothers, transfers, coarse.vmult,
-                     one_sided=one_sided, n_coarse_cycles=n_coarse_cycles,
-                     timer=timer)
+                     one_sided=one_sided, n_coarse_cycles=n_coarse_cycles)
 
 
 def n_devices(params: dict, device: torch.device) -> int:
@@ -336,12 +344,20 @@ def _use_refinement(params: dict, mg_inner, solver_type: str, n_dofs: int,
 
 
 def run_config(params: dict, table: ConvergenceTable | None = None,
-               log=print, device=DEFAULT_DEVICE,
-               timer: StageTimer | None = None, shards=None):
+               log=print, device=DEFAULT_DEVICE, shards=None):
     """Run one config on ``device`` (float64 outer solve); returns the result
-    dict.  ``timer`` times the V-cycle's stages; ``shards`` (a
-    ``parallel/sharding.py::Shards``) runs the sharded path over its ranks
-    whatever "n devices" says, world size 1 included."""
+    dict.  ``shards`` (a ``parallel/sharding.py::Shards``) runs the sharded
+    path over its ranks whatever "n devices" says, world size 1 included.
+    Under "print timing" the set-up and the warm-up solve are traced and
+    the tracer's table is printed (on rank 0); the timed solves run
+    untraced."""
+    if not get_param(params, "print timing", False):
+        return _run_config(params, table, log, device, shards, None)
+    with tracing() as tracer:
+        return _run_config(params, table, log, device, shards, tracer)
+
+
+def _run_config(params: dict, table, log, device, shards, tracer):
     t_setup = time.perf_counter()
     device = resolve_device(device)
     assert_no_tf32()
@@ -353,8 +369,9 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     dtype = OUTER_DTYPE
     table = table or ConvergenceTable()
     fe_degree = int(get_param(params, "degree", 1))
-    family = make_mesh_family(params, log)
-    mesh = family.fine_mesh
+    with span("setup.mesh"):
+        family = make_mesh_family(params, log)
+        mesh = family.fine_mesh
     if family.dim == 2:
         # the JAX kernels are 3D only, so its 2D paths run XLA
         log(" - 2D mesh: plain torch (kernels A-F take 3D meshes)")
@@ -362,12 +379,14 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
     # the compact geometry forms serve the outer operator only; the levels
     # keep the merged coefficients, as in the JAX package (``poisson.py:345``).
     # A sharded solve assembles b on the host and keeps its slab
-    op = family.operator(dofs, dtype, device if shards is None else "cpu",
-                         get_param(params, "operator mapping type", ""))
-    rhs_fn, dbc_fn = make_rhs_and_dbc(get_param(params, "rhs", "constant"),
-                                      family.dim)
-    b = op.assemble_rhs(rhs_fn, dirichlet=dbc_fn)
-    g = op.dirichlet_vector(dbc_fn)
+    with span("setup.operator"):
+        op = family.operator(dofs, dtype,
+                             device if shards is None else "cpu",
+                             get_param(params, "operator mapping type", ""))
+        rhs_fn, dbc_fn = make_rhs_and_dbc(get_param(params, "rhs", "constant"),
+                                          family.dim)
+        b = op.assemble_rhs(rhs_fn, dirichlet=dbc_fn)
+        g = op.dirichlet_vector(dbc_fn)
 
     table.add_value("name", get_param(params, "name", family.name))
     table.add_value("n_cells", mesh.n_cells_total)
@@ -392,7 +411,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
                 "and float64 only)")
         if shards is None:
             precon = _build_multigrid(precon_p, family, fe_degree, log,
-                                      level_dtype, device, timer)
+                                      level_dtype, device)
         elif isinstance(family, GeneralMeshFamily):
             sharded = build_sharded_general(
                 precon_p, family, fe_degree, log, level_dtype, op, shards)
@@ -400,8 +419,7 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         else:
             log(f" - n devices:  {shards.world} (explicit-halo sharding)")
             sharded = build_sharded_multigrid(
-                precon_p, family, fe_degree, log, level_dtype, op, shards,
-                timer=timer)
+                precon_p, family, fe_degree, log, level_dtype, op, shards)
             precon = sharded.mg
         if level_dtype != dtype:
             mg_inner = precon
@@ -465,21 +483,23 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
 
     synchronize(device)
     setup_time = time.perf_counter() - t_setup
-    result = dispatch()  # warm-up
+    with span("setup.warmup"):
+        result = dispatch()
     best_of = int(get_param(solver_p, "best of", 1))
     print_timing = get_param(params, "print timing", False)
     solve_time = 999.0
     if result.converged and (best_of > 1 or print_timing):
-        for _ in range(best_of):
-            synchronize(device)
-            t0 = time.perf_counter()
-            r2 = dispatch()
-            synchronize(device)
-            solve_time = min(solve_time, time.perf_counter() - t0)
-            if r2.n_iterations != result.n_iterations:
-                raise RuntimeError(
-                    f"repeated solve took {r2.n_iterations} iterations, the "
-                    f"first {result.n_iterations}")
+        with paused():  # the timed solves run untraced
+            for _ in range(best_of):
+                synchronize(device)
+                t0 = time.perf_counter()
+                r2 = dispatch()
+                synchronize(device)
+                solve_time = min(solve_time, time.perf_counter() - t0)
+                if r2.n_iterations != result.n_iterations:
+                    raise RuntimeError(
+                        f"repeated solve took {r2.n_iterations} iterations, "
+                        f"the first {result.n_iterations}")
     if result.converged:
         log(f"   - n iterations:   {result.n_iterations}")
         if print_timing:
@@ -491,8 +511,8 @@ def run_config(params: dict, table: ConvergenceTable | None = None,
         table.add_value("it", 999)
     if print_timing:
         table.add_value("time", solve_time)
-        if timer is not None and (shards is None or shards.rank == 0):
-            timer.print_timings()
+        if tracer is not None and (shards is None or shards.rank == 0):
+            tracer.print_table()
     table.add_value("aspect_ratio", mesh.max_aspect_ratio())
     solution = result.x if g is None else result.x + g.to(result.x.device)
     if get_param(params, "do output", False) and (shards is None

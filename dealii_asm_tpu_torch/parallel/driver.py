@@ -145,8 +145,7 @@ class ShardedMGSolve:
 
 
 def build_sharded_multigrid(precon_p: dict, family, fe_degree: int, log,
-                            dtype, outer_op, shards: Shards,
-                            timer=None) -> ShardedMGSolve:
+                            dtype, outer_op, shards: Shards) -> ShardedMGSolve:
     """The sharded twin of ``models/poisson.py::_build_multigrid``
     (``driver.py:172-263``).  Levels with fewer than "replicate below"
     DoFs, and everything at or below the intermediate split, are built
@@ -154,8 +153,7 @@ def build_sharded_multigrid(precon_p: dict, family, fe_degree: int, log,
     ``ShardedLattice`` levels.  ``outer_op`` is the finest level's host
     operator in the outer dtype (the one ``run_config`` assembles b with);
     the outer Krylov loop runs over its lattice, or, for a compact mapping
-    type, over the lattice of the family's merged float64 operator.
-    ``timer`` goes to the outer V-cycle."""
+    type, over the lattice of the family's merged float64 operator."""
     from ..models.poisson import mg_level_layout
 
     device = shards.device
@@ -226,7 +224,7 @@ def build_sharded_multigrid(precon_p: dict, family, fe_degree: int, log,
     # operator serves only "n coarse cycles" > 1
     mg = Multigrid([ops[k - 1]] + [sl.vmult for sl in sls], sh_smoothers,
                    sh_transfers, replicated_fn, one_sided=one_sided,
-                   n_coarse_cycles=n_coarse_cycles, timer=timer)
+                   n_coarse_cycles=n_coarse_cycles)
     # the float64 outer operator: a second lattice of the same padded layout.
     # The lattice takes the merged form: for a compact mapping type the
     # outer lattice is the family's merged float64 operator, as in the JAX

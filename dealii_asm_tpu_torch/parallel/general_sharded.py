@@ -396,8 +396,8 @@ def build_sharded_general(precon_p: dict, family, fe_degree: int, log,
 
     As in the JAX function, the fine Chebyshev takes only the degree, the
     polynomial type and the padded start vector (every other setting keeps
-    the class default), and "n coarse cycles" and the timer are not passed
-    (ROADMAP queue 3).  Returns a ``parallel/driver.py::ShardedMGSolve``."""
+    the class default), and "n coarse cycles" is not passed (ROADMAP
+    queue 3).  Returns a ``parallel/driver.py::ShardedMGSolve``."""
     from ..models.poisson import mg_level_layout
     from ..precond.asm_general import GeneralASMPreconditioner
     from ..precond.factory import create_system_preconditioner

@@ -7,6 +7,8 @@ pre-smooth, the residual rhs − A x (kernel A with its residual epilogue),
 restriction, the coarse correction, prolongation, and the post-smoothing
 step (kernel C on CUDA).  Options: one-sided V-cycle, several coarse cycles,
 and the intermediate split (the caller nests a Multigrid as coarse solver).
+While tracing is on (``utils/profiling.py``) each V-cycle and each stage is
+a span on its level, the levels of nested multigrids counted together.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..ops.laplace import LaplaceOperator
 from ..ops.laplace_general import GeneralLaplaceOperator
 from ..ops.tensorops import outer_grid, outer_sum
 from ..solvers.krylov import cg_traceable
-from ..utils.profiling import StageTimer
+from ..utils.profiling import span
 
 
 def assemble_dense(op) -> torch.Tensor:
@@ -144,13 +146,16 @@ class Multigrid:
     operators[l]: the level operator (with ``vmult`` and ``residual``) or a
     callable; smoothers[l-1]: object with vmult(b) and step(x, b) for level
     l >= 1; transfers[l-1] connects level l-1 (coarse) to l (fine).
-    ``timer`` (a ``utils/profiling.py::StageTimer``, none by default)
-    times the JAX package's stages per level: "pre smooth", "residual",
-    "restrict", "coarse solve", "prolongate" and "post smooth"."""
+    Traced, the V-cycle is the span "mg.vcycle" on its finest level and its
+    stages (the JAX package's "pre smooth", "residual", "restrict",
+    "coarse solve", "prolongate" and "post smooth") the spans
+    ``profiling.STAGES`` on theirs.  Those levels start at
+    ``level_offset``: the levels below this V-cycle's coarsest when its
+    coarse solver is another Multigrid's V-cycle (a ph or hp layout), else
+    0."""
 
     def __init__(self, operators, smoothers, transfers, coarse_solver,
-                 one_sided: bool = False, n_coarse_cycles: int = 1,
-                 timer: StageTimer | None = None):
+                 one_sided: bool = False, n_coarse_cycles: int = 1):
         if len(operators) not in (len(smoothers), len(smoothers) + 1):
             raise ValueError("need one smoother per level above the coarsest")
         self.operators = operators
@@ -160,7 +165,9 @@ class Multigrid:
         self.one_sided = one_sided
         self.n_coarse_cycles = n_coarse_cycles
         self.n_levels = len(operators)
-        self.timer = timer
+        inner = getattr(coarse_solver, "__self__", None)
+        self.level_offset = (inner.level_offset + inner.n_levels - 1
+                             if isinstance(inner, Multigrid) else 0)
 
     def _residual(self, level: int, rhs, x):
         A = self.operators[level]
@@ -174,28 +181,30 @@ class Multigrid:
             x = x + self.coarse_solver(self._residual(0, rhs, x))
         return x
 
-    def _stage(self, level: int, name: str, fn, *args):
-        if self.timer is None:
-            return fn(*args)
-        return self.timer.run(level, name, fn, *args)
-
     def _v_step(self, level: int, rhs):
-        t = self._stage
+        at = self.level_offset + level
         if level == 0:
-            return t(0, "coarse solve", self._coarse_solve, rhs)
+            with span("mg.coarse_solve", at):
+                return self._coarse_solve(rhs)
         smoother = self.smoothers[level - 1]
         transfer = self.transfers[level - 1]
-        x = t(level, "pre smooth", smoother.vmult, rhs)
-        r = t(level, "residual", self._residual, level, rhs, x)
-        rc = t(level, "restrict", transfer.restrict, r)
+        with span("mg.pre_smooth", at):
+            x = smoother.vmult(rhs)
+        with span("mg.residual", at):
+            r = self._residual(level, rhs, x)
+        with span("mg.restrict", at):
+            rc = transfer.restrict(r)
         xc = self._v_step(level - 1, rc)
-        x = t(level, "prolongate", lambda: x + transfer.prolongate(xc))
+        with span("mg.prolongate", at):
+            x = x + transfer.prolongate(xc)
         if not self.one_sided:
-            x = t(level, "post smooth", smoother.step, x, rhs)
+            with span("mg.post_smooth", at):
+                x = smoother.step(x, rhs)
         return x
 
     def vmult(self, src):
-        return self._v_step(self.n_levels - 1, src)
+        with span("mg.vcycle", self.level_offset + self.n_levels - 1):
+            return self._v_step(self.n_levels - 1, src)
 
     def __call__(self, src):
         return self.vmult(src)

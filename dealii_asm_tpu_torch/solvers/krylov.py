@@ -16,7 +16,10 @@ reduction.  Dot products of sub-float64 vectors accumulate in float64.
 Every solver takes its inner products from ``reduction`` (a
 ``Reduction``; by default ``LOCAL``, the vectors held whole on one device).
 The JAX package's double-single outer loop is not ported: the outer matvec
-is native float64.
+is native float64.  While tracing is on (``utils/profiling.py``), ``solve``
+is the span "solve", each CG iteration "cg.iteration" with its operator
+apply "cg.operator" and preconditioner apply "cg.precond", and every read
+of a device value on the host adds to the counter "host_syncs".
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, solve_span, span
 
 
 @dataclass
@@ -106,9 +111,11 @@ class Reduction:
         return V @ w
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> float:
+        count("host_syncs")
         return float(self.dot_t(a, b))
 
     def norm(self, a: torch.Tensor) -> float:
+        count("host_syncs")
         return float(self.norm_t(a))
 
 
@@ -131,43 +138,47 @@ def cg(A, b, M=None, control: ReductionControl | None = None,
     stall = 0
     best_res = res
     if state != "success":
-        z = M(r)
+        with span("cg.precond"):
+            z = M(r)
         p = z
         rz = red.dot(r, z)
         while state == "iterate":
-            it += 1
-            Ap = A(p)
-            pAp = red.dot(p, Ap)
-            if pAp <= 0.0 and track_eigenvalues:
-                break  # breakdown: further coefficients are noise
-            if pAp == 0.0:
-                break
-            alpha = rz / pAp
-            x = x + alpha * p
-            r = r - alpha * Ap
-            res = red.norm(r)
-            if track_eigenvalues:
-                # stagnation guard: once the residual stops decreasing in
-                # working precision, Lanczos coefficients are noise
-                if res < best_res * 0.999:
-                    best_res = min(best_res, res)
-                    stall = 0
-                else:
-                    stall += 1
-                    if stall >= 8:
-                        alphas.append(alpha)
-                        break
-            state = control.check(it, res)
-            if state != "iterate":
+            with span("cg.iteration"):
+                it += 1
+                with span("cg.operator"):
+                    Ap = A(p)
+                pAp = red.dot(p, Ap)
+                if pAp <= 0.0 and track_eigenvalues:
+                    break  # breakdown: further coefficients are noise
+                if pAp == 0.0:
+                    break
+                alpha = rz / pAp
+                x = x + alpha * p
+                r = r - alpha * Ap
+                res = red.norm(r)
+                if track_eigenvalues:
+                    # stagnation guard: once the residual stops decreasing in
+                    # working precision, Lanczos coefficients are noise
+                    if res < best_res * 0.999:
+                        best_res = min(best_res, res)
+                        stall = 0
+                    else:
+                        stall += 1
+                        if stall >= 8:
+                            alphas.append(alpha)
+                            break
+                state = control.check(it, res)
+                if state != "iterate":
+                    alphas.append(alpha)
+                    break
+                with span("cg.precond"):
+                    z = M(r)
+                rz_new = red.dot(r, z)
+                beta = rz_new / rz
+                rz = rz_new
+                p = z + beta * p
                 alphas.append(alpha)
-                break
-            z = M(r)
-            rz_new = red.dot(r, z)
-            beta = rz_new / rz
-            rz = rz_new
-            p = z + beta * p
-            alphas.append(alpha)
-            betas.append(beta)
+                betas.append(beta)
 
     eigs = None
     if track_eigenvalues and alphas:
@@ -257,6 +268,7 @@ def gmres(A, b, M=None, control: ReductionControl | None = None,
                     w = w - hs[-1] * Vk[j]
                 hcol = torch.stack(hs)
             # the one device-to-host copy of the iteration
+            count("host_syncs")
             col = torch.cat([hcol, red.norm_t(w)[None]]).cpu()
             H[: k + 2, k] = col.numpy()
             hk1 = H[k + 1, k]
@@ -545,7 +557,13 @@ def solve(solver_type, A, b, M=None, max_iterations=1000, abs_tolerance=1e-10,
                                    rel_tolerance)
     else:
         control = IterationNumberControl(max_iterations, abs_tolerance)
-    return SOLVERS[solver_type](A, b, M=M, control=control, **kwargs)
+    with solve_span():
+        return SOLVERS[solver_type](A, b, M=M, control=control, **kwargs)
+
+
+def _host_bool(t: torch.Tensor) -> bool:
+    count("host_syncs")
+    return bool(t)
 
 
 def cg_traceable(A, b, M=None, reduction: float = 1e-4,
@@ -563,7 +581,7 @@ def cg_traceable(A, b, M=None, reduction: float = 1e-4,
     rz = torch.dot(r, z)
     target2 = (reduction * reduction) * torch.dot(b, b)
     it = 0
-    while it < max_iterations and bool(torch.dot(r, r) > target2):
+    while it < max_iterations and _host_bool(torch.dot(r, r) > target2):
         Ap = A(p)
         alpha = rz / torch.dot(p, Ap)
         x = x + alpha * p

@@ -1,6 +1,6 @@
 """The port's last drivers and output against the JAX package's: the VTU
 writers (dealii_asm_tpu_torch.utils.vtu), the mesh gallery and coarsening
-printout (models/mesh_gallery.py), the multigrid ``StageTimer``
+printout (models/mesh_gallery.py), the multigrid's stage spans
 (utils/profiling.py, precond/multigrid.py), the power-kernel study
 (models/power_kernel.py) and the variant studies (models/variant_bench.py).
 
@@ -9,10 +9,11 @@ Contract:
   lattices (one periodic), a Kershaw mesh and the 3D ball; the gallery's
   files and table and the coarsening printout equal the JAX ones;
 - one V-cycle of the same h-multigrid records the same (level, stage) keys
-  and counts in both packages' timers; ``run_config`` under "print timing"
-  prints the level × stage table when it is given a timer; without a timer
-  the V-cycle gives the same bits; ``trace`` writes a Chrome trace of an
-  apply and tabulates its operations;
+  and counts in the port's tracer as in the JAX ``StageTimer``;
+  ``run_config`` under "print timing" prints the tracer's level × stage
+  table; with the tracer off the V-cycle gives the same bits; ``trace``
+  writes a Chrome trace of an apply and a solve, the program's spans
+  beside the operations, and tabulates its operations;
 - ``power_kernel`` and ``variant_bench`` print the JAX labels (the JAX
   access label ``pallas`` is the port's ``cuda``), with the JAX n_dofs,
   repetition and size fields; on the CPU every label runs eagerly.  Their
@@ -55,7 +56,8 @@ from dealii_asm_tpu_torch.models import variant_bench
 from dealii_asm_tpu_torch.models.poisson import (_build_multigrid,
                                                  make_mesh_family, run_config)
 from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
-from dealii_asm_tpu_torch.utils.profiling import StageTimer, trace
+from dealii_asm_tpu_torch.solvers import krylov
+from dealii_asm_tpu_torch.utils.profiling import trace, tracing
 from dealii_asm_tpu_torch.utils.vtu import write_vtu, write_vtu_mesh
 
 SMALL = {"n subdivisions": 2, "degree": 3, "n repetitions": 2}
@@ -146,20 +148,20 @@ def test_stage_timer_keys_and_counts_equal_jax():
     pp = MG["preconditioner"]
     jmg = jax_build_mg(pp, jax_family(MG), 2, None, _quiet, jnp.float32)
     jmg.timer = JaxStageTimer(enabled=True)
-    timer = StageTimer()
     mg = _build_multigrid(pp, make_mesh_family(MG), 2, _quiet, torch.float32,
-                          torch.device("cpu"), timer)
+                          torch.device("cpu"))
     b = np.random.default_rng(5).standard_normal(9 ** 3)
-    y = mg.vmult(torch.as_tensor(b, dtype=torch.float32))
+    with tracing() as tracer:
+        y = mg.vmult(torch.as_tensor(b, dtype=torch.float32))
     y_ref = jmg.vmult(jnp.asarray(b, jnp.float32))
-    assert dict(timer.counts) == dict(jmg.timer.counts)
-    assert len(timer.counts) == 1 + 5 * 2  # coarse + 5 stages × 2 levels
-    assert set(timer.times) == set(jmg.timer.times)
+    counts = tracer.stage_counts()
+    assert counts == dict(jmg.timer.counts)
+    assert len(counts) == 1 + 5 * 2  # coarse + 5 stages × 2 levels
+    assert set(counts) == set(jmg.timer.times)
     assert _rel(y.numpy(), y_ref) < 1e-5
-    # without a timer the V-cycle calls its stages directly, to the same bits
-    mg.timer = None
+    # with the tracer off the V-cycle gives the same bits
     assert torch.equal(mg.vmult(torch.as_tensor(b, dtype=torch.float32)), y)
-    assert len(timer.counts) == 11 and timer.counts[(0, "coarse solve")] == 1
+    assert tracer.stage_counts() == counts and counts[(0, "coarse solve")] == 1
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
@@ -168,27 +170,36 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     u = torch.as_tensor(np.random.default_rng(3).standard_normal(dofs.n_dofs))
     with trace(str(tmp_path)) as prof:
         y = op.vmult(u)
+        krylov.solve("CG", op.vmult, u, max_iterations=2)
     assert y.shape == u.shape and bool(torch.isfinite(y).all())
     assert prof.key_averages()
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert events
+    names = {e.get("name") for e in events}
+    # the program's spans beside the operations
+    assert {"solve", "cg.iteration", "cg.operator"} <= names
+    assert any(str(n).startswith("aten::") for n in names)
 
 
 def test_run_config_prints_the_stage_table(capsys):
     params = dict(copy.deepcopy(MG), **{"print timing": True})
-    timer = StageTimer()
-    res = run_config(params, log=_quiet, device="cpu", timer=timer)
-    text = capsys.readouterr().out
-    head = text.splitlines()[0].split("|")
+    with tracing() as tracer:
+        res = run_config(params, log=_quiet, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    head = lines[0].split("|")
     assert head[0].strip() == "level"
     assert [h.strip() for h in head[1:]] == sorted(
         ["coarse solve", "post smooth", "pre smooth", "prolongate",
          "residual", "restrict"])
+    # a row per level, the coarsest 0: host ms / device ms ("-" on the CPU)
+    assert [int(l.split("|")[0]) for l in lines[1:4]] == [0, 1, 2]
+    assert lines[2].split("|")[1].strip() == "-"  # no coarse solve on 1
+    assert lines[1].split("|")[1].strip().endswith("/        -")
     assert res["converged"]
-    # the warm-up and the timed solve: CG applies the V-cycle once per
-    # iteration, and each V-cycle solves the coarse level once
-    assert timer.counts[(0, "coarse solve")] == 2 * res["it"]
+    # the warm-up solve is traced, the timed one not: CG applies the
+    # V-cycle once per iteration, and each V-cycle solves the coarse
+    # level once
+    assert tracer.stage_counts()[(0, "coarse solve")] == res["it"]
 
 
 def test_power_kernel_lines_and_applies_match_jax():
