@@ -10,17 +10,18 @@
     python3 chip_smoke.py --only 22   # build + the solver breadth phase
     python3 chip_smoke.py --only 23   # build + multi-device, drivers, output
     python3 chip_smoke.py --only 24   # build + the sharded ball
+    python3 chip_smoke.py --only 25   # build + kernel G's checks and times
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 1. toolchain: torch and its CUDA, nvcc, triton, the card's name and power
    limit;
 2. build the kernels from dealii_asm_tpu_torch/kernels/csrc with nvcc, and
    print the launch plan of every instantiation of kernel A, of the tiled
-   kernels B and C (tile, threads, shared bytes) and of the line-per-thread
-   cell body of E and F (cells a warp and a block, threads, shared and
-   parameter bytes), held equal to kernels/banded_laplace.py::launch_plan,
-   kernels/fdm_patch.py::launch_plan and kernels/merged_laplace.py::
-   cell_plan; with --ptxas also registers and spills, and the count of E's
+   kernels B, C and G (tile, threads, shared bytes) and of the
+   line-per-thread cell body of E and F (cells a warp and a block, threads,
+   shared and parameter bytes), held equal to kernels/banded_laplace.py::
+   launch_plan, kernels/fdm_patch.py::launch_plan, kernels/cell_fdm_patch.py
+   ::launch_plan and kernels/merged_laplace.py::cell_plan; with --ptxas also registers and spills, and the count of E's
    and F's multiplies that take a table entry from the parameter bank or
    from a uniform register loaded from it;
 3. every kernel against its plain PyTorch version on the card, on random
@@ -42,6 +43,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      cells Q4, Q2 and Q1 (the Kershaw levels; CUDA events over calls and
      over replays of a CUDA graph of one call, which leaves out the host's
      launch cost), printed before the kernel table;
+   - G (float32 and float64) on Kershaw meshes (eps 0.3) against
+     CellASMPreconditioner's plain apply: at p = 1..7 on 5 x 7 x 13 and
+     1 x 9 x 6 cells (ragged tiles, a 1-cell axis) under the weightings
+     none, pre, post and symm, at 2^3, 12^3 and 48^3 cells Q4 and at 48^3
+     cells Q2 and Q1 (the Kershaw levels), repeated runs bit-identical;
+     timed at the three Kershaw levels in both precisions in turns against
+     the plain chain, and replayed in a CUDA graph, beside its bound
+     (fembench/roofline.py::patch_fdm_work); also alone as phase 25;
    - F (float64 and float32) on the balanced hyperball (mapping degree 2)
      at 32, 2,048 and 131,072 cells Q4 and at p = 1..7 (2,048 cells), in
      its vmult and residual modes, repeated runs bit-identical;
@@ -200,7 +209,9 @@ the homogeneous system; mp_00..05 6, 8, 8, 14, 6, 15 at 2 subdivisions and
 0 refinements; dummy.json 24) and the card to the CPU path (Kershaw within
 one iteration).  Phases 17 to 19 accept any converged count at full size
 (the JAX package has none there).  B, C and D are launched 0 times in
-phases 10, 11, 14 to 16 and 18 to 20.  Each FDM apply of phases 14 to 16
+phases 10, 11, 14 to 16 and 18 to 20; G on every Kershaw level of phases 5
+and 13, 0 times on the flagship and in phases 14, 18 and 19 (vertex and
+overlap-2 RAS patches).  Each FDM apply of phases 14 to 16
 is held in float64 on the card to 1e-12 of the CPU's float64 apply and in
 float32 to 1e-5, repeats
 bit-identical, and timed with CUDA events beside the element overlap-1
@@ -338,11 +349,16 @@ KERNELS = {
                           "dealii_asm_tpu/ops/pallas/lanes_vmult.py:263"),
     "smoother_sweep": ("dealii_asm_tpu_torch/kernels/csrc/smoother_sweep.cu",
                        "dealii_asm_tpu/ops/pallas/smoother_step.py:968"),
+    # no TPU kernel: the JAX package's XLA einsum of the per-cell tables
+    "cell_fdm_patch": ("dealii_asm_tpu_torch/kernels/csrc/cell_fdm_patch.cu",
+                       "none (XLA einsum, dealii_asm_tpu/precond/asm.py:466)"),
 }
 # the solve whose run_config launches each kernel
 FLAGSHIP_KERNELS = ("banded_laplace_f32", "banded_laplace_f64", "fdm_patch",
                     "smoother_step")
-KERSHAW_KERNELS = ("merged_laplace_f64", "merged_laplace_f32")
+# E on every deformed level; G only where the smoother is element overlap 1
+MERGED_KERNELS = ("merged_laplace_f64", "merged_laplace_f32")
+KERSHAW_KERNELS = MERGED_KERNELS + ("cell_fdm_patch",)
 BALL_KERNELS = ("lanes_laplace_f64", "lanes_laplace_f32")
 LADDER_KERNELS = ("smoother_sweep",)
 # the largest shape each kernel's solve gives it (the kernels line reports it)
@@ -350,6 +366,7 @@ MAIN_SHAPE = dict.fromkeys(FLAGSHIP_KERNELS, "64^3 cells Q4")
 MAIN_SHAPE.update(dict.fromkeys(KERSHAW_KERNELS, "48^3 cells Q4"))
 MAIN_SHAPE.update(dict.fromkeys(BALL_KERNELS, "131072 cells Q4"))
 MAIN_SHAPE["smoother_sweep"] = "64^3 cells Q4, degree 2, from x"
+MAIN_SHAPE["cell_fdm_patch"] = "48^3 cells Q4"
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense, at the full 700 W):
 # device memory 3.35 TB/s; float32 67 TFLOP/s and float64 34 TFLOP/s outside
@@ -375,11 +392,14 @@ PEAK_FLOP_S = {4: 67e12, 8: 34e12}
 #   the sub-steps' rounding at the size of one step's.
 # - B, C and D float64: 1e-12, the same float64 products in another order
 #   and grouping (the float32 bounds above cover float32 rounding).
+# - G float32: 1e-5, float64: 1e-12: the plain version applies the same
+#   per-cell m x m transforms as batched products, the kernel per line in
+#   another order (the same eigenvalue sums and reciprocals).
 BOUNDS = {"banded_laplace_f32": 1e-5, "banded_laplace_f64": 1e-12,
           "fdm_patch": 1e-4, "smoother_step": 1e-4,
           "merged_laplace_f64": 1e-12, "merged_laplace_f32": 1e-5,
           "lanes_laplace_f64": 1e-12, "lanes_laplace_f32": 1e-5,
-          "smoother_sweep": 1e-4}
+          "smoother_sweep": 1e-4, "cell_fdm_patch": 1e-5}
 BOUND_F64 = 1e-12
 
 
@@ -519,11 +539,12 @@ def sweep_work(cells: int, n: int, p: int, k: int, zero_x: bool) -> tuple:
 
 def check_plans() -> None:
     """Phase 2: the launch plan of every instantiation of kernels A, B, C,
-    E and F as the library has it (dat_band_plan, dat_tile_plan,
-    dat_cell_plan) against launch_plan's and cell_plan's mirrors."""
+    E, F and G as the library has it (dat_band_plan, dat_tile_plan,
+    dat_cell_plan, dat_cell_tile_plan) against launch_plan's and
+    cell_plan's mirrors."""
     import ctypes
 
-    from dealii_asm_tpu_torch.kernels import banded_laplace
+    from dealii_asm_tpu_torch.kernels import banded_laplace, cell_fdm_patch
     from dealii_asm_tpu_torch.kernels.build import load
     from dealii_asm_tpu_torch.kernels.fdm_patch import KERNEL_IDS, launch_plan
     from dealii_asm_tpu_torch.kernels.merged_laplace import cell_plan
@@ -570,6 +591,19 @@ def check_plans() -> None:
             if tuple(got) != want:
                 raise Failed(f"plan cells p={p} itemsize={itemsize}: "
                              f"library {tuple(got)}, cell_plan {want}")
+    for p in range(1, 8):
+        for itemsize in (4, 8):
+            if lib.dat_cell_tile_plan(p, itemsize, got) != 0:
+                raise Failed(f"dat_cell_tile_plan({p}, {itemsize})")
+            plan = cell_fdm_patch.launch_plan(p, itemsize)
+            want = (*plan.tile, plan.threads, plan.shared_bytes)
+            print(f"  plan cell_fdm_patch p={p} float{8 * itemsize}: tile "
+                  f"{got[0]}x{got[1]}, {got[2]} layers a block, {got[3]} "
+                  f"threads, {got[4]} shared bytes; grid at 48^3 cells "
+                  f"{plan.grid((48, 48, 48))}")
+            if tuple(got) != want:
+                raise Failed(f"plan cell_fdm_patch p={p} itemsize={itemsize}:"
+                             f" library {tuple(got)}, launch_plan {want}")
 
 
 def sass_table_operands() -> None:
@@ -807,6 +841,79 @@ def check_merged(cells_list, degrees_small, level_degrees, results, rows):
                                 "it")
             del op
             torch.cuda.empty_cache()
+
+
+def check_cell_fdm(cells_list, results, rows):
+    """Phase 3: kernel G (both precisions) vs ``CellASMPreconditioner``'s
+    plain apply on Kershaw meshes (eps 0.3): ragged meshes at p = 1..7 under
+    every multiplicity weighting, each size of ``cells_list`` at Q4 and the
+    largest at Q2 and Q1.  Timed in turns against the plain chain, and
+    replayed in a CUDA graph, on the largest size; those times go to
+    ``rows``."""
+    import numpy as np
+    import torch
+
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels.cell_fdm_patch import cell_fdm_patch
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+    from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
+    from fembench.roofline import patch_fdm_work
+
+    rng = np.random.default_rng(SEED + 7)
+    name = "cell_fdm_patch"
+    big = max(cells_list)
+    cases = [((5, 7, 13), p, wt) for p in range(1, 8)
+             for wt in ("none", "pre", "post", "symm")]
+    cases += [((1, 9, 6), p, "symm") for p in range(1, 8)]
+    cases += [((c, c, c), 4, "symm") for c in cells_list]
+    cases += [((big, big, big), p, "symm") for p in (2, 1)]
+    for cells, p, wt in cases:
+        mesh = StructuredMesh(3, cells, transform=kershaw_transform(0.3, 0.3))
+        dofs = DofHandler(mesh, p)
+        n = dofs.n_dofs
+        x64 = torch.as_tensor(rng.standard_normal(n), device="cuda")
+        tag = "x".join(map(str, cells)) if len(set(cells)) > 1 else \
+            f"{cells[0]}^3"
+        tag = f"{tag} cells Q{p}, {n} DoFs, {wt}"
+        timed = cells[0] == big and len(set(cells)) == 1
+        for dt in (torch.float32, torch.float64):
+            asm = CellASMPreconditioner(dofs, weighting_type=wt, dtype=dt,
+                                        device="cuda")
+            if not asm.fused:
+                raise Failed(f"{name} {tag}: the gate refused the level")
+            t = asm.cell_tables
+            x = x64.to(dt)
+            got = cell_fdm_patch(x, t)
+            same = torch.equal(got, cell_fdm_patch(x, t))
+            err = rel_err(got, t.plain(x))
+            bnd = BOUNDS[name] if dt == torch.float32 else BOUND_F64
+            print(f"  G {str(dt)[6:]} {tag}: max rel err {err:.3e} (bound "
+                  f"{bnd:g}); repeated runs "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            if not (err <= bnd and same):
+                raise Failed(f"{name} {dt} {tag}: {err:.3e}, "
+                             f"bit-identical={same}")
+            if timed:
+                isz = x.element_size()
+                k_ms, p_ms = in_turns(lambda: t.plain(x),
+                                      lambda: cell_fdm_patch(x, t), 20)
+                g_ms = graph_time(lambda: cell_fdm_patch(x, t), 200)
+                g_txt = "not measured" if g_ms is None else f"{g_ms:.4f}"
+                work = bound(*patch_fdm_work(mesh.n_cells_total, n, p + 1,
+                                             isz), isz)
+                print_time(tag, n, k_ms, p_ms)
+                rows.append(f"G {str(dt)[6:]} {tag}: kernel {k_ms:.4f} ms "
+                            f"({g_txt} ms replayed in a CUDA graph), plain "
+                            f"{p_ms:.4f} ms, bound {work[0]:.4f} ms "
+                            f"({work[1]}), {work[0] / k_ms:.1%} of it")
+                if dt == torch.float32 and p == 4:
+                    abs_err = float((got - t.plain(x))
+                                    .abs().max())
+                    results.setdefault(name, {})[tag] = (abs_err, k_ms, p_ms,
+                                                         work)
+            del asm, t
+        torch.cuda.empty_cache()
 
 
 def check_tiles(degrees, results, cases=None):
@@ -1401,6 +1508,12 @@ def run_new_paths(counts, phases) -> None:
     run_breadth_paths(counts, phases)
     run_parallel_paths(counts, phases)
     run_sharded_ball_phase(phases)
+    if 25 in phases:
+        print("== phase 25: kernel G against its plain version on the card")
+        rows = []
+        check_cell_fdm([2, 12, 48], {}, rows)
+        for row in rows:
+            print(row)
 
 
 def patch_apply_cases(phase: int) -> tuple:
@@ -1498,8 +1611,8 @@ def run_vertex_paths(counts, phases) -> None:
         print("== phase 14: e2e_kershaw_fdmv (Kershaw, vertex FDM) on the card")
         check_patch_applies(14)
         res = run_solve(KERSHAW_FDMV, 1, 44, None, 7_189_057,
-                        KERSHAW_KERNELS, counts, slack=1, record=(),
-                        absent=absent_fused, best_of=3)
+                        MERGED_KERNELS, counts, slack=1, record=(),
+                        absent=absent_fused + ("cell_fdm_patch",), best_of=3)
         print(f"  count {res['it']} beside the reference's 49 at this size "
               "(deal.II; the JAX package takes 49 at 912,673 DoFs and never "
               "ran this size)")
@@ -1629,8 +1742,9 @@ def run_input_paths(counts, phases) -> None:
               "overlap-2 RAS, dense coarse solve) at its own size on the card")
         coarse_solver_time()
         res = run_solve(os.path.join(INPUTS, "mp_02.json"), 0,
-                        MP_SMALL["mp_02"], None, 16_194_277, KERSHAW_KERNELS,
-                        counts, record=(), absent=absent_fused, best_of=1,
+                        MP_SMALL["mp_02"], None, 16_194_277, MERGED_KERNELS,
+                        counts, record=(),
+                        absent=absent_fused + ("cell_fdm_patch",), best_of=1,
                         small_mesh=mp_small)
         del res
     if 19 in phases:
@@ -1642,11 +1756,11 @@ def run_input_paths(counts, phases) -> None:
                         mp_small)
         for name in ("mp_00", "mp_01", "mp_03", "mp_04", "mp_05"):
             kernels = (("merged_laplace_f32",) if name in MP_COMPACT
-                       else KERSHAW_KERNELS)
+                       else MERGED_KERNELS)
             run_solve(os.path.join(INPUTS, f"{name}.json"), 0, MP_SMALL[name],
                       None, 2_048_383, kernels, counts, record=(),
-                      absent=absent_fused, best_of=1, refinements=1,
-                      small_mesh=mp_small)
+                      absent=absent_fused + ("cell_fdm_patch",), best_of=1,
+                      refinements=1, small_mesh=mp_small)
     if 20 in phases:
         print("== phase 20: inputs/dummy.json (2D Q3, CG around Diagonal) on "
               "the card")
@@ -2453,7 +2567,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and shared memory per kernel")
     ap.add_argument("--only", default=None,
-                    help="comma-separated solve phases (9-24) to run after "
+                    help="comma-separated phases (9-25) to run after "
                          "the build, and nothing else; prints no result")
     args = ap.parse_args(argv)
 
@@ -2512,12 +2626,15 @@ def main(argv=None) -> int:
         check_kernels([2] if args.quick else [2, 16, 64], [2, 4], results)
         check_merged([2] if args.quick else [2, 12, 48], range(1, 8),
                      () if args.quick else (2, 1), results, level_rows)
+        check_cell_fdm([2] if args.quick else [2, 12, 48], results,
+                       level_rows)
         check_tiles(range(1, 8), results)
         check_lanes([0] if args.quick else [0, 2, 4], range(1, 8), results)
         check_sweep([2] if args.quick else [16, 64], results)
         if not args.quick:
             print("== flagship solve on the card")
-            run_solve(FLAGSHIP, 2, 4, 5, 16_974_593, FLAGSHIP_KERNELS, counts)
+            run_solve(FLAGSHIP, 2, 4, 5, 16_974_593, FLAGSHIP_KERNELS, counts,
+                      absent=("cell_fdm_patch",))
             print("== Kershaw solve on the card")
             run_solve(KERSHAW, 1, 38, 55, 7_189_057, KERSHAW_KERNELS, counts,
                       slack=1)

@@ -9,6 +9,7 @@ that its main path went through the kernels.
 LAUNCHES = {
     "banded_laplace_f32": 0,
     "banded_laplace_f64": 0,
+    "cell_fdm_patch": 0,
     "fdm_patch": 0,
     "lanes_laplace_f32": 0,
     "lanes_laplace_f64": 0,

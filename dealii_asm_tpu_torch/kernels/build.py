@@ -24,8 +24,9 @@ from ..utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("banded_laplace.cu", "fdm_patch.cu", "lanes_laplace.cu",
-           "merged_laplace.cu", "smoother_step.cu", "smoother_sweep.cu")
+SOURCES = ("banded_laplace.cu", "cell_fdm_patch.cu", "fdm_patch.cu",
+           "lanes_laplace.cu", "merged_laplace.cu", "smoother_step.cu",
+           "smoother_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "libdealii_asm_kernels.so"
@@ -45,9 +46,13 @@ _SWEEP = [_P] * 6 + [_P] * 6 + [_P] * 12 + [_I] * 4 + [_P, _I, _I, _P]
 # (F) gather, row_ptr, slots; the sizes, p, mode, the stream
 _MERGED = [_P] * 6 + [_I] * 5 + [_P]
 _LANES = [_P] * 9 + [_I] * 4 + [_P]
+# G: src, out, Vx, Vy, Vz, lam, the six folds; Cz, Cy, Cx, p, the stream
+_CELL = [_P] * 12 + [_I] * 4 + [_P]
 SIGNATURES = {
     "dat_banded_laplace_f32": _BANDED,
     "dat_banded_laplace_f64": _BANDED,
+    "dat_cell_fdm_patch_f32": _CELL,
+    "dat_cell_fdm_patch_f64": _CELL,
     "dat_fdm_patch_f32": _FDM + [ctypes.c_float, _I, _P],
     "dat_fdm_patch_f64": _FDM + [ctypes.c_double, _I, _P],
     "dat_lanes_laplace_f32": _LANES,
@@ -60,6 +65,7 @@ SIGNATURES = {
     "dat_smoother_sweep_f64": _SWEEP,
     "dat_band_plan": [_I, _I, _P],
     "dat_cell_plan": [_I, _I, _P],
+    "dat_cell_tile_plan": [_I, _I, _P],
     "dat_tile_plan": [_I, _I, _I, _P],
 }
 

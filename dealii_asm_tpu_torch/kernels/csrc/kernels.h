@@ -1,9 +1,10 @@
 // Shared declarations of the port's hand-written Hopper kernels.
 //
 // Each kernel lives in exactly one translation unit (banded_laplace.cu,
-// fdm_patch.cu, smoother_step.cu, lanes_laplace.cu, merged_laplace.cu;
-// fdm_patch.cu and smoother_step.cu share the tiled FDM body of
-// fdm_tile.cuh, banded_laplace.cu and smoother_step.cu the plane pipeline
+// fdm_patch.cu, smoother_step.cu, lanes_laplace.cu, merged_laplace.cu,
+// cell_fdm_patch.cu; fdm_patch.cu and smoother_step.cu share the tiled FDM
+// body of fdm_tile.cuh, whose tile shapes and helpers cell_fdm_patch.cu
+// uses too, banded_laplace.cu and smoother_step.cu the plane pipeline
 // pieces of banded_plane.cuh, the last two the per-cell body of
 // sumfac_cell.cuh); smoother_sweep.cu composes the host launchers of A and
 // B.  Every extern "C" entry returns cudaGetLastError() after its launches,

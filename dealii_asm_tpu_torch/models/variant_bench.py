@@ -17,7 +17,8 @@ variant benchmarks:
   of the Cartesian collection, a fixed-order scatter; the JAX
   ``ASMPreconditioner`` with ``access = "gather"``, ``asm.py:670-677``),
   ``lanes`` (the per-cell FDM of deformed meshes,
-  ``CellASMPreconditioner``, forced onto the Cartesian mesh) and ``cuda``
+  ``CellASMPreconditioner``, forced onto the Cartesian mesh; kernel G on
+  CUDA at overlap 1, its plain chain at overlap 2) and ``cuda``
   (kernel C's fused step; the JAX label ``pallas``).  The JAX package runs
   ``gather`` in XLA, so it is plain torch here.  On the CPU the ``cuda``
   label runs kernel C's plain version.

@@ -20,11 +20,15 @@ forms:
   ``ops/pallas/fdm_slab.py:151-154``).
 - ``CellASMPreconditioner``, deformed meshes whose 1D patch matrices do not
   factor per coordinate (``asm.py:188-234``, ``:320-345``, ``:611-660``):
-  one eigen-table per patch and direction, deduplicated by key, and the
-  apply as batched per-patch (m × m) products in plain torch, the JAX
-  ``_fdm_apply`` form (``asm.py:466-490``), on strided windows of the node
-  grid (``ops/lattice.py``).  The JAX package applies these tables in XLA,
-  not in a Pallas kernel.
+  one eigen-table per patch and direction, deduplicated by key.  For
+  element patches at overlap 1 with a multiplicity weighting on a
+  non-periodic 3D mesh in float32 or float64 the apply is kernel G
+  (``kernels/cell_fdm_patch.py``), kernel B's tile walk with per-cell
+  tables.  Every other case, and the CPU, takes the plain form: batched
+  per-patch (m × m) products, the JAX ``_fdm_apply`` form
+  (``asm.py:466-490``), on strided windows of the node grid
+  (``ops/lattice.py``).  The JAX package applies these tables in XLA, not
+  in a Pallas kernel.
 
 Periodic axes (``asm.py:371-446``): every vertex is interior, window
 starts wrap modulo N = p·C (a 1-cell axis wraps a window onto itself, so
@@ -49,6 +53,7 @@ from torch import nn
 
 from ..device import DEFAULT_DEVICE, KERNEL_DTYPES, resolve_device
 from ..fem.patches import vertex_anchors
+from ..kernels.cell_fdm_patch import CellFDMTables, cell_fdm_patch
 from ..kernels.fdm_patch import FDMTables, fdm_patch, fdm_patch_plain
 from ..ops.laplace import check_structured
 from ..ops.lattice import (axis_firsts, grid_to_windows, window_layout,
@@ -318,9 +323,10 @@ def vertex_fdm_collection(extents: np.ndarray, degree: int) -> FDMCollection:
 
 def cell_fdm_tables(collection: FDMCollection, dtype, device):
     """Per-patch tables of a deduplicated collection on ``device``: V[d]
-    (P, m, m) per direction (x first) and denom (P, m, m, m) ((P, m, m) in
-    2D), the eigenvalue sums λ_z + λ_y + λ_x added slowest direction first
-    (the JAX package's ``fdm_apply_lanes`` order), all in ``dtype``."""
+    (P, m, m) and λ[d] (P, m) per direction (x first), and denom
+    (P, m, m, m) ((P, m, m) in 2D), the eigenvalue sums λ_z + λ_y + λ_x
+    added slowest direction first (the JAX package's ``fdm_apply_lanes``
+    order), all in ``dtype``."""
     ids = np.asarray(collection.ids)
     V, lams = [], []
     for d in range(ids.shape[1]):
@@ -329,10 +335,10 @@ def cell_fdm_tables(collection: FDMCollection, dtype, device):
                                     dtype=dtype, device=device))
     if len(lams) == 2:
         lx, ly = lams
-        return V, ly[:, :, None] + lx[:, None, :]
+        return V, lams, ly[:, :, None] + lx[:, None, :]
     lx, ly, lz = lams
-    return V, (lz[:, :, None, None] + ly[:, None, :, None]
-               + lx[:, None, None, :])
+    return V, lams, (lz[:, :, None, None] + ly[:, None, :, None]
+                     + lx[:, None, None, :])
 
 
 def _unrolled_axis(u: torch.Tensor, V: torch.Tensor, axis: int,
@@ -406,14 +412,16 @@ def _window_mask_product(masks: list) -> np.ndarray:
 def register_patch_tables(module: nn.Module, collection: FDMCollection):
     """V0..V{dim−1} and the eigenvalue sums of ``cell_fdm_tables`` as
     buffers of ``module`` in its dtype: ``inv_denom`` (the reciprocal), or
-    ``denom`` itself on a bfloat16 level (see ``cell_fdm_apply``)."""
-    V, denom = cell_fdm_tables(collection, module.dtype, module.device)
+    ``denom`` itself on a bfloat16 level (see ``cell_fdm_apply``).  Returns
+    the per-direction eigenvalues λ[d] (P, m) they were summed from."""
+    V, lams, denom = cell_fdm_tables(collection, module.dtype, module.device)
     for d, Vd in enumerate(V):
         module.register_buffer(f"V{d}", Vd)
     if module.dtype == torch.bfloat16:
         module.register_buffer("denom", denom)
     else:
         module.register_buffer("inv_denom", 1.0 / denom)
+    return lams
 
 
 def work_dtype(dtype, src: torch.Tensor):
@@ -444,7 +452,10 @@ class CellASMPreconditioner(nn.Module):
     ``collection`` (optional): the NumPy ``FDMCollection`` (eigvecs[d]
     (U_d, m, m), eigvals[d] (U_d, m), ids (P, dim)); ``ras_mask``
     (optional): the (P, m³) RAS mask; by default both are built here
-    (``interop.py`` passes the JAX ones).
+    (``interop.py`` passes the JAX ones).  ``fused`` says whether the apply
+    is kernel G: element patches of overlap 1 with a multiplicity
+    weighting, on a non-periodic 3D mesh, in float32 or float64, as kernel
+    B's rule on Cartesian levels.
     """
 
     def __init__(self, dofs, n_overlap: int = 1, weighting_type: str = "post",
@@ -480,7 +491,7 @@ class CellASMPreconditioner(nn.Module):
                     extents, nbr[:, :, 0] >= 0, nbr[:, :, 1] >= 0, p,
                     n_overlap)
         self.collection = collection
-        register_patch_tables(self, collection)
+        lams = register_patch_tables(self, collection)
         folds = [_axis_folds(dofs, weighting_type, d, n_overlap, patch_type)
                  for d in range(self.dim)]
         for k, name in enumerate(("fin", "fout")):
@@ -494,12 +505,30 @@ class CellASMPreconditioner(nn.Module):
         self.ras_mask = (None if ras_mask is None
                          else self._tensor(ras_mask))
         self.grid_shape = tuple(reversed(dofs.nodes_per_dim))
+        self.fused = (patch_type == "element" and n_overlap == 1
+                      and weighting_type != "ras" and self.dim == 3
+                      and not any(self.periodic) and dtype in KERNEL_DTYPES)
+        if self.fused:
+            self.register_buffer("lam", torch.stack(lams, 1))
+            self.cell_tables = CellFDMTables(
+                [getattr(self, f"V{d}") for d in range(3)], self.lam,
+                [self._tensor(f[0]) for f in folds],
+                [self._tensor(f[1]) for f in folds],
+                tuple(reversed(mesh.n_cells)), p, self.vmult_plain)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a), dtype=self.dtype,
                             device=self.device)
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
+        """P⁻¹ src: kernel G where ``fused`` (its plain version on a CPU
+        tensor), else ``vmult_plain``."""
+        if self.fused:
+            return cell_fdm_patch(src.to(self.dtype),
+                                  self.cell_tables).to(src.dtype)
+        return self.vmult_plain(src)
+
+    def vmult_plain(self, src: torch.Tensor) -> torch.Tensor:
         """x·w → windows → ⊗Vᵀ → 1/Σλ → ⊗V → (RAS mask) → overlap-add → ·w."""
         dt = work_dtype(self.dtype, src)
         x = src.to(dt).reshape(self.grid_shape) * self.fin.to(dt)

@@ -1,6 +1,7 @@
-"""The tile decomposition of kernels B and C (kernels/csrc/fdm_tile.cuh) on
-the CPU: their launch plans, and a plain per-cell mirror of the tile order
-held against the port's plain versions and the JAX package's TPU kernels.
+"""The tile decomposition of kernels B and C (kernels/csrc/fdm_tile.cuh) and
+of kernel G (kernels/csrc/cell_fdm_patch.cu) on the CPU: their launch
+plans, and a plain per-cell mirror of the tile order held against the
+port's plain versions and the JAX package's TPU kernels.
 
 The CUDA kernels run only on the GPU (``chip_smoke.py`` holds them against
 their plain versions there); what a CPU can check is the decomposition they
@@ -22,6 +23,15 @@ Tolerances (max |difference| / max |reference|):
   ``SmootherStepKernel.step(..., interpret=True)``: 3e-2, the bound of
   ``tests/test_torch_smoother_step.py``: the TPU kernel runs its FDM stage in
   bfloat16, the port in float32.
+
+Kernel G walks the same tiles with each cell's own V and lambda (its
+eigenvalue sums (lz + ly) + lx formed per patch, then the reciprocal).
+``_tiled_fdm`` with ``cell_tables`` is its mirror, held against
+``CellASMPreconditioner``'s plain apply (windows, batched per-cell einsums,
+overlap-add) on Kershaw meshes: float32 1e-5, float32 rounding of the same
+products in another order and grouping (the einsums contract through
+cuBLAS-style batched products, the mirror per line); float64 1e-12, the
+same float64 products in another order.
 """
 
 import itertools
@@ -39,12 +49,16 @@ from dealii_asm_tpu.ops.pallas.fdm_slab import FDMSlabKernel
 from dealii_asm_tpu.ops.pallas.smoother_step import SmootherStepKernel
 from dealii_asm_tpu.precond.asm import ASMPreconditioner as JaxASM
 from dealii_asm_tpu_torch.fem.dofs import DofHandler
+from dealii_asm_tpu_torch.kernels import LAUNCHES
+from dealii_asm_tpu_torch.kernels import cell_fdm_patch as kernel_g
 from dealii_asm_tpu_torch.kernels.banded_laplace import banded_laplace_plain
 from dealii_asm_tpu_torch.kernels.fdm_patch import (fdm_patch_plain,
                                                     launch_plan)
 from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
 from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
-from dealii_asm_tpu_torch.precond.asm import ASMPreconditioner
+from dealii_asm_tpu_torch.precond.asm import (ASMPreconditioner,
+                                              CellASMPreconditioner)
 
 MAX_SHARED = 232_448  # bytes of shared memory one H100 block may use
 MAX_GRID = (2 ** 31 - 1, 65_535, 65_535)
@@ -70,9 +84,33 @@ def test_launch_plan_fits_the_h100(kernel, itemsize, p):
         assert grid[2] * tz >= cells[0]
 
 
-def _tiled_fdm(src, t, omega, tile, xold=None):
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("p", range(1, 8))
+def test_cell_launch_plan_fits_the_h100(itemsize, p):
+    """Kernel G's plans (csrc/cell_fdm_patch.cu's cell_tile_shape and
+    cell_layout) fit a block of the H100 and cover the Kershaw levels."""
+    plan = kernel_g.launch_plan(p, itemsize)
+    assert plan.kernel == "cell_fdm_patch"
+    assert plan.threads <= 1024 and plan.threads % 32 == 0
+    assert 0 < plan.shared_bytes <= MAX_SHARED
+    assert plan.shared_bytes % 16 == 0  # regions stay 16-byte aligned
+    assert plan.blocks_per_sm >= 1
+    for cells in [(48, 48, 48), (1, 48, 48), (48, 1, 48), (48, 48, 1),
+                  (1, 1, 1), (6, 6, 6)]:
+        grid = plan.grid(cells)
+        assert all(1 <= g <= lim for g, lim in zip(grid, MAX_GRID))
+        tx, ty, _ = plan.tile
+        assert grid[0] * tx >= cells[2] and grid[1] * ty >= cells[1]
+        assert grid[2] * plan.chunk(cells) >= cells[0]
+    with pytest.raises(ValueError):
+        kernel_g.launch_plan(p, 2)
+
+
+def _tiled_fdm(src, t, omega, tile, xold=None, cell_tables=False):
     """omega·P⁻¹ src (+ xold) walked tile by tile, layer by layer, as the
-    kernels do, in src's dtype."""
+    kernels do, in src's dtype: kernels B and C with per-coordinate tables
+    ``FDMTables``, or kernel G with per-cell ``CellFDMTables``
+    (``cell_tables``)."""
     cz_n, cy_n, cx_n = t.cells
     p = t.p
     tx, ty, tz = tile
@@ -80,7 +118,10 @@ def _tiled_fdm(src, t, omega, tile, xold=None):
     g = src.reshape(nz, ny, nx).numpy()
     dt = g.dtype
     Vx, Vy, Vz = (v.numpy().astype(dt) for v in t.V)
-    lx, ly, lz = (v.numpy().astype(dt) for v in t.lam)
+    if cell_tables:
+        lam = t.lam.numpy().astype(dt)
+    else:
+        lx, ly, lz = (v.numpy().astype(dt) for v in t.lam)
     fin = [f.numpy().astype(dt) for f in t.fin]
     fout = [f.numpy().astype(dt) for f in t.fout]
     out = np.full((nz, ny, nx), np.nan, dt)
@@ -92,10 +133,20 @@ def _tiled_fdm(src, t, omega, tile, xold=None):
               slice(cx * p, cx * p + p + 1))
         w = (g[sl] * fin[2][sl[0], None, None] * fin[1][None, sl[1], None]
              * fin[0][None, None, sl[2]])
-        u = np.einsum("ai,bj,ck,abc->ijk", Vz[cz], Vy[cy], Vx[cx], w)
-        u = u / (lz[cz][:, None, None] + ly[cy][None, :, None]
-                 + lx[cx][None, None, :])
-        return np.einsum("ia,jb,kc,abc->ijk", Vz[cz], Vy[cy], Vx[cx], u)
+        if cell_tables:
+            c = (cz * cy_n + cy) * cx_n + cx  # cells numbered x fastest
+            vz, vy, vx = Vz[c], Vy[c], Vx[c]
+            sx, sy, sz = lam[c]
+            u = np.einsum("ai,bj,ck,abc->ijk", vz, vy, vx, w)
+            # (lz + ly) + lx in the level's dtype, then the reciprocal
+            u = u * (dt.type(1) / (sz[:, None, None] + sy[None, :, None]
+                                   + sx[None, None, :]))
+        else:
+            vz, vy, vx = Vz[cz], Vy[cy], Vx[cx]
+            u = np.einsum("ai,bj,ck,abc->ijk", vz, vy, vx, w)
+            u = u / (lz[cz][:, None, None] + ly[cy][None, :, None]
+                     + lx[cx][None, None, :])
+        return np.einsum("ia,jb,kc,abc->ijk", vz, vy, vx, u)
 
     for bz, by, bx in itertools.product(range(-(-cz_n // tz)),
                                         range(-(-cy_n // ty)),
@@ -200,3 +251,152 @@ def test_tile_order_step_matches_tpu_kernel(cells, p, wt):
     ref = np.asarray(kern.step(jnp.asarray(x), jnp.asarray(b), 0.37,
                                interpret=True))
     assert _rel(got, ref) < 3e-2
+
+
+# -- kernel G: per-cell tables on Kershaw meshes -----------------------------
+# cells not multiples of any tile, and a 1-cell axis in each direction
+KERSHAW_MESHES = [((3, 5, 2), "symm"), ((2, 1, 3), "none"),
+                  ((1, 4, 3), "pre"), ((5, 3, 1), "post")]
+
+
+def _kershaw(cells, p):
+    return DofHandler(StructuredMesh(3, cells,
+                                     transform=kershaw_transform(0.3, 0.3)),
+                      p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 2, 4, 7])
+@pytest.mark.parametrize("cells,wt", KERSHAW_MESHES)
+def test_cell_tile_order_matches_plain(cells, wt, p, dtype):
+    """Kernel G's tile order (the mirror with per-cell tables) against
+    ``CellASMPreconditioner``'s plain apply (``vmult`` on a CPU tensor is
+    ``vmult_plain``, bit for bit); every node written once."""
+    dofs = _kershaw(cells, p)
+    asm = CellASMPreconditioner(dofs, weighting_type=wt, dtype=dtype,
+                                device="cpu")
+    assert asm.fused
+    x = torch.as_tensor(np.random.default_rng(300 + 10 * p + len(wt))
+                        .standard_normal(dofs.n_dofs), dtype=dtype)
+    before = LAUNCHES["cell_fdm_patch"]
+    ref = asm.vmult(x)
+    assert LAUNCHES["cell_fdm_patch"] == before  # a CPU tensor: plain
+    assert torch.equal(ref, asm.vmult_plain(x))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    itemsize = 4 if dtype == torch.float32 else 8
+    for tile in (kernel_g.launch_plan(p, itemsize).tile, (2, 2, 1),
+                 (1, 3, 2)):
+        got = _tiled_fdm(x, asm.cell_tables, 1.0, tile, cell_tables=True)
+        assert _rel(got, ref) < tol, tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_cell_eigenvalue_sums_equal_the_plain_table(p, dtype):
+    """The reciprocal of the per-cell sums (lz + ly) + lx that kernel G
+    forms on chip equals the plain path's (P, m, m, m) ``inv_denom`` bit
+    for bit, and the tables add no (P, m, m) copy."""
+    asm = CellASMPreconditioner(_kershaw((3, 2, 2), p), weighting_type="symm",
+                                dtype=dtype, device="cpu")
+    t = asm.cell_tables
+    lx, ly, lz = t.lam.unbind(1)
+    inv = 1.0 / (lz[:, :, None, None] + ly[:, None, :, None]
+                 + lx[:, None, None, :])
+    assert torch.equal(inv, asm.inv_denom)
+    assert t.lam.shape == (12, 3, p + 1) and t.lam.dtype == dtype
+    for d in range(3):
+        assert t.V[d] is getattr(asm, f"V{d}")
+        n_d = asm.dofs.nodes_per_dim[d]
+        assert t.fin[d].shape == t.fout[d].shape == (n_d,)
+    # the per-axis folds multiply out to the plain path's grid folds
+    assert torch.allclose(t.fin[2][:, None, None] * t.fin[1][None, :, None]
+                          * t.fin[0][None, None, :], asm.fin, rtol=1e-6)
+
+
+def test_kernel_g_gate():
+    """Which ``CellASMPreconditioner`` configurations take kernel G: element
+    patches at overlap 1 with the weightings none/pre/post/symm on a
+    non-periodic 3D mesh in float32 or float64; RAS, vertex patches,
+    overlap 2, 2D, periodic and bfloat16 levels keep the plain path, as do
+    CPU tensors.  The patch count the benchmark reads (``V0.shape[0]``) is
+    the cell count either way."""
+    k = kershaw_transform(0.3, 0.3)
+    dofs = DofHandler(StructuredMesh(3, (3, 2, 2), transform=k), 2)
+    n = dofs.mesh.n_cells_total
+    for wt in ("none", "pre", "post", "symm"):
+        for dt in (torch.float32, torch.float64):
+            asm = CellASMPreconditioner(dofs, weighting_type=wt, dtype=dt,
+                                        device="cpu")
+            assert asm.fused and asm.V0.shape[0] == n
+    plain = [CellASMPreconditioner(dofs, weighting_type="ras", device="cpu"),
+             CellASMPreconditioner(dofs, patch_type="vertex", device="cpu"),
+             CellASMPreconditioner(dofs, n_overlap=2, device="cpu"),
+             CellASMPreconditioner(dofs, dtype=torch.bfloat16, device="cpu"),
+             CellASMPreconditioner(
+                 DofHandler(StructuredMesh(2, (3, 2), transform=k), 2),
+                 device="cpu"),
+             CellASMPreconditioner(
+                 DofHandler(StructuredMesh(3, (3, 2, 2), transform=k,
+                                           periodic=(True, False, False)), 2),
+                 device="cpu")]
+    for asm in plain:
+        assert not asm.fused and not hasattr(asm, "cell_tables")
+        assert not hasattr(asm, "lam")
+    assert plain[0].V0.shape[0] == n and plain[2].V0.shape[0] == n
+    fused = CellASMPreconditioner(dofs, weighting_type="symm",
+                                  dtype=torch.float32, device="cpu")
+    x = torch.randn(dofs.n_dofs, dtype=torch.float64)
+    before = LAUNCHES["cell_fdm_patch"]
+    y = fused.vmult(x)
+    assert y.dtype == torch.float64 and LAUNCHES["cell_fdm_patch"] == before
+    with pytest.raises(TypeError, match="unsupported device"):
+        kernel_g.cell_fdm_patch(x.to(torch.float32).to("meta"),
+                                fused.cell_tables)
+
+
+def test_every_kershaw_smoother_apply_takes_kernel_g(monkeypatch):
+    """Every level of ``e2e_kershaw_q4.json`` (ph-multigrid, Chebyshev-2
+    around element overlap-1 symm FDM, float32 levels) passes G's gate, and
+    every per-cell FDM apply of its solve goes through G's wrapper (on a CPU
+    tensor the wrapper runs the plain apply, so each plain apply must come
+    from it)."""
+    import copy
+    import json
+    import os
+
+    from dealii_asm_tpu_torch.models.poisson import run_config
+    from dealii_asm_tpu_torch.precond import asm as asm_module
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "experiments", "e2e_kershaw_q4.json")) as f:
+        params = json.load(f)
+    params = copy.deepcopy(params)
+    params["n refinements"] = 0
+    params["solver"].update({"best of": 1, "max iterations": 3})
+    params["print timing"] = False
+    calls = {"wrapper": 0, "plain": 0}
+    wrapper, plain = asm_module.cell_fdm_patch, \
+        CellASMPreconditioner.vmult_plain
+
+    def count_wrapper(src, t):
+        calls["wrapper"] += 1
+        return wrapper(src, t)
+
+    def count_plain(self, src):
+        calls["plain"] += 1
+        return plain(self, src)
+
+    monkeypatch.setattr(asm_module, "cell_fdm_patch", count_wrapper)
+    monkeypatch.setattr(CellASMPreconditioner, "vmult_plain", count_plain)
+    res = run_config(params, log=lambda *_: None, device="cpu")
+    assert calls["wrapper"] > 0 and calls["plain"] == calls["wrapper"]
+    mg, inner = res["preconditioner"].inner, []
+    while True:
+        inner += [s.M.__self__ for s in mg.smoothers]
+        nested = getattr(mg.coarse_solver, "__self__", None)
+        if type(nested) is not type(mg):
+            break
+        mg = nested
+    assert len(inner) >= 2  # Q4 and Q2 above the coarse Q1 level here
+    assert all(isinstance(a, CellASMPreconditioner) and a.fused
+               and a.dtype == torch.float32 for a in inner)

@@ -10,6 +10,8 @@ cell body of kernels E and F.
     python3 tools/tile_sweep.py plan --parent DIR   # beside another checkout
     python3 tools/tile_sweep.py ef             # E and F: plan, skeleton, ...
     python3 tools/tile_sweep.py ef plan --parent DIR
+    python3 tools/tile_sweep.py g              # kernel G's float32 tiles
+    python3 tools/tile_sweep.py g plan q4_8x8  # some of them by name
 
 In ``ef`` mode each variant times kernel E in float64 and float32 on the
 Kershaw mesh (eps 0.3, mapping degree 3) at 48^3 cells Q4, Q2 and Q1 (the
@@ -28,6 +30,14 @@ an SM; ``prefetch`` loads the coefficients before the cell's values and
 ``gathers`` unrolls the node gather and the DoF scatter.  The ball's DoF
 tables are built once (about 40 s of host NumPy) and handed to
 every variant's process.
+
+In ``g`` mode each variant builds only kernel G (``cell_fdm_patch.cu``),
+with one float32 tile of one m changed (``q4_8x8``: m = 5, 8 x 8 cells);
+one process builds the Kershaw tables (eps 0.3, 48^3 cells, Q4, Q2 and
+Q1, symm) once, loads every variant's library side by side and times
+each level in every variant twice in turns (CUDA events over calls and
+over replays of a CUDA graph of one call), with its max relative
+difference from the plain apply.
 
 Each variant is a copy of dealii_asm_tpu_torch/ (under _tile_sweep/) with
 its kernel sources edited (VARIANTS: file, text, replacement); "plan" is
@@ -170,6 +180,117 @@ EF_VARIANTS = {
     "gathers": GATHERS,
 }
 EF_DEFAULT = ("plan", "skeleton", "warp4x8", "packed4x10")
+
+# kernel G: one float32 tile (tx, ty, cz, threads) of one m
+G_SRC = "cell_fdm_patch.cu"
+G_PLAN = "constexpr TileShape cell_tile_shape(int m, int itemsize) {\n"
+
+
+def _g(m, tile):
+    return [(G_SRC, G_PLAN, G_PLAN + "  if (itemsize == 4 && m == %d) "
+             "return {%d, %d, %d, %d};\n" % (m, *tile))]
+
+
+G_CHUNK = ("  const int chunk = cell_chunk_layers(tx * ty, t.Cz, C::CZ, "
+           "C::MINB);\n")
+G_MINB = "  static constexpr int MINB = min_blocks(BYTES, NT);\n"
+
+
+def _gc(m, cz):  # kernel G's float32 chunk at m fixed to cz layers
+    return [(G_SRC, G_CHUNK, G_CHUNK.replace(
+        "= cell_chunk_layers", "= sizeof(T) == 4 && M == %d ? %d : "
+        "cell_chunk_layers" % (m, cz)))]
+
+
+def _gb(m, minb):  # kernel G's float32 blocks an SM at m (launch bounds)
+    return [(G_SRC, G_MINB, G_MINB.replace(
+        "= min_blocks", "= sizeof(T) == 4 && M == %d ? %d : min_blocks"
+        % (m, minb)))]
+
+
+G_VARIANTS = {
+    "plan": [],
+    "q4_cz8": _gc(5, 8),  # B's chunk rule at 48^3
+    "q4_4x4": _g(5, (4, 4, 16, 256)),
+    "q4_4x4cz8": _g(5, (4, 4, 16, 256)) + _gc(5, 8),
+    "q4_8x8": _g(5, (8, 8, 16, 512)),
+    "q4_minb2": _gb(5, 2),
+    "q4_4x4x128": _g(5, (4, 4, 16, 128)),
+    "q2_8x8": _g(3, (8, 8, 16, 256)),
+    "q2_cz2": _gc(3, 2),  # B's chunk rule at 48^3
+    "q2_8x4": _g(3, (8, 4, 16, 128)),
+    "q1_8x8": _g(2, (8, 8, 16, 128)),
+    "q1_cz2": _gc(2, 2),
+}
+G_SYMBOLS = ("dat_cell_fdm_patch", "dat_cell_tile_plan")
+G_BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+           "from dealii_asm_tpu_torch.kernels import build; "
+           f"build.SOURCES = ({G_SRC!r},); "
+           "build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items() "
+           f"if k.startswith({G_SYMBOLS!r})}}; print(build.build())")
+
+
+def g_sweep(libs: dict) -> None:
+    """Kernel G's variants (name -> library path) at the Kershaw levels,
+    twice in turns, in this process."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from dealii_asm_tpu_torch.fem.dofs import DofHandler
+    from dealii_asm_tpu_torch.kernels.build import SIGNATURES
+    from dealii_asm_tpu_torch.mesh.grid import StructuredMesh
+    from dealii_asm_tpu_torch.mesh.transforms import kershaw_transform
+    from dealii_asm_tpu_torch.precond.asm import CellASMPreconditioner
+
+    fns = {}
+    for n, path in libs.items():
+        fn = ctypes.CDLL(path).dat_cell_fdm_patch_f32
+        fn.argtypes = SIGNATURES["dat_cell_fdm_patch_f32"]
+        fn.restype = ctypes.c_int
+        fns[n] = fn
+    levels = {}
+    for p in (4, 2, 1):
+        dofs = DofHandler(StructuredMesh(
+            3, (48, 48, 48), transform=kershaw_transform(0.3, 0.3)), p)
+        asm = CellASMPreconditioner(dofs, weighting_type="symm",
+                                    dtype=torch.float32, device="cuda")
+        x = torch.randn(dofs.n_dofs, device="cuda")
+        levels[p] = (asm.cell_tables, x, asm.vmult_plain(x).double(),
+                     torch.empty_like(x))
+    def call(fn, t, x, out):
+        ptrs = [v.data_ptr() for v in (*t.V, t.lam, *t.fin, *t.fout)]
+        return lambda: fn(x.data_ptr(), out.data_ptr(), *ptrs, *t.cells, t.p,
+                          torch.cuda.current_stream().cuda_stream)
+
+    def ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+
+    for rnd in range(2):
+        for n, fn in fns.items():
+            line = []
+            for p, (t, x, ref, out) in levels.items():
+                run = call(fn, t, x, out)
+                if run() != 0:
+                    line.append(f"Q{p} launch failed")
+                    continue
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    run()
+                rel = float((out.double() - ref).abs().max() / ref.abs().max())
+                line.append(f"Q{p} {ms(run, 100):.4f} ms, graph "
+                            f"{ms(graph.replay, 300):.4f} ms, rel {rel:.1e}")
+            print(f"round {rnd} {n}: " + "; ".join(line), flush=True)
+
 
 CHILD = r'''
 import json, sys
@@ -416,13 +537,34 @@ def main(argv) -> int:
         parent = os.path.abspath(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     ef = argv[:1] == ["ef"]
-    if ef:
+    g = argv[:1] == ["g"]
+    if ef or g:
         argv = argv[1:]
-    variants = EF_VARIANTS if ef else VARIANTS
-    names = ((list(variants) if argv == ["all"] else argv)
+    variants = EF_VARIANTS if ef else G_VARIANTS if g else VARIANTS
+    names = ((list(variants) if argv == ["all"] or (g and not argv) else argv)
              or list(EF_DEFAULT if ef else DEFAULT))
     os.makedirs(WORK, exist_ok=True)
     dirs = {n: make(n, variants) for n in names}
+    if g:
+        t0 = time.perf_counter()
+        procs = {n: subprocess.Popen([sys.executable, "-c", G_BUILD, d],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for n, d in dirs.items()}
+        libs = {}
+        for n, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                print(f"{n}: build failed\n{log[-3000:]}", flush=True)
+            else:
+                libs[n] = log.strip().splitlines()[-1]
+        print(f"built {len(libs)} variants of kernel G in "
+              f"{time.perf_counter() - t0:.1f} s")
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
+        g_sweep(libs)
+        return 0
     if parent is not None:
         dirs["parent"] = parent
     t0 = time.perf_counter()
