@@ -16,23 +16,36 @@ After the window, for each sampled right-hand side b (drawn from the seed):
 
 Each number is the largest over the sample and is held to the cell's limit
 in ``fembench/workloads/<cell>.json``.  The reference runs once the program's
-state is freed.
+state is freed.  The reference is the cell's own (``harness.reference``).
+Where its numbering is not the program's, a vector goes into the
+reference's order before each of its applies and comes back into the
+program's after it, so that every difference and norm is taken in the
+program's numbering.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .reference import multigrid as ref
+from . import harness
 
 
 class Judge:
-    """The plain float64 reference of a configuration, built once, and the
-    compared numbers of a run's sampled answers."""
+    """The plain float64 reference of a cell's configuration, built once,
+    and the compared numbers of a run's sampled answers; ``perm``
+    (``harness.Numbering.perm``) places program DoF i at the reference's
+    ``perm[i]``."""
 
-    def __init__(self, config: dict, device):
+    def __init__(self, cell: dict, device, perm=None):
         self.device = device
-        self.outer, self.V = ref.build(config, device=device)
+        self.outer, self.V = harness.reference(cell).build(cell["config"],
+                                                           device=device)
+        self.A, self.M = self.outer.vmult, self.V.vmult
+        if perm is not None:
+            back = perm.to(device)
+            to = torch.argsort(back)
+            self.A = lambda v, f=self.A: f(v[to])[back]
+            self.M = lambda v, f=self.M: f(v[to])[back]
 
     def numbers(self, rhs, kept: dict, vcycles: dict) -> dict:
         """The compared numbers of the sampled answers ``kept`` (right-hand
@@ -43,10 +56,10 @@ class Judge:
             kp = kept[k]
             b = rhs(k).to(torch.float64)
             x = kp.x.to(self.device)
-            true = float(torch.linalg.vector_norm(b - self.outer.vmult(x)))
+            true = float(torch.linalg.vector_norm(b - self.A(x)))
             del x
             gaps.append(abs(true - kp.reported) / kp.norm_b)
-            z = self.V.vmult(b)
+            z = self.M(b)
             diff = vcycles[k].to(device=self.device, dtype=torch.float64) - z
             vgaps.append(float(torch.linalg.vector_norm(diff)
                                / torch.linalg.vector_norm(z)))

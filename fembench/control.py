@@ -25,28 +25,30 @@ import sys
 import torch
 
 from . import check, harness
-from .reference import multigrid as ref
-from .reference.multigrid import Problem
-from .traffic import RightHandSides
 
 
 class ControlAnswers:
-    """The reference in float32 with TF32 products, in the program's place."""
+    """The reference in float32 with TF32 products, in the program's place
+    (its answers in the reference's own numbering)."""
 
-    def __init__(self, config: dict, device):
+    points = None  # no program: no numbering to match
+
+    def __init__(self, cell: dict, device):
+        config = cell["config"]
+        self.ref = harness.reference(cell)
         self.tol = float(config["solver"]["rel tolerance"])
         with _tf32():
-            self.outer, self.V = ref.build(config, device=device,
-                                           outer_dtype=torch.float32,
-                                           level_dtype=torch.float32)
+            self.outer, self.V = self.ref.build(config, device=device,
+                                                outer_dtype=torch.float32,
+                                                level_dtype=torch.float32)
 
     def __call__(self, rhs, sample) -> tuple:
         kept, vcycles = {}, {}
         with _tf32():
             for k in sample:
                 b = rhs(k).to(torch.float32)
-                x, it, conv, res = ref.cg(self.outer.vmult, b, self.V.vmult,
-                                          self.tol)
+                x, it, conv, res = self.ref.cg(self.outer.vmult, b,
+                                               self.V.vmult, self.tol)
                 kept[k] = harness.Kept(x.double().cpu(), res[0], res[-1],
                                        it, conv)
                 vcycles[k] = self.V.vmult(b).cpu()
@@ -68,8 +70,9 @@ class ProgramAnswers:
     """The program, set up as a run sets it up; its answers without a
     timed window."""
 
-    def __init__(self, config: dict, device):
-        self.prog = harness.set_up(config, device)
+    def __init__(self, cell: dict, device):
+        self.prog = harness.set_up(cell["config"], device)
+        self.points = self.prog.points
 
     def __call__(self, rhs, sample) -> tuple:
         kept, vcycles = {}, {}
@@ -85,13 +88,13 @@ class ProgramAnswers:
 def readings(cell: dict, seeds, program: bool, device):
     """One dict of compared numbers per seed; the answers' source and the
     float64 judge are built once."""
-    prob = Problem(cell["config"])
-    cells = [c * 2 ** prob.refinements for c in prob.base]
-    answers = (ProgramAnswers if program else ControlAnswers)(cell["config"],
-                                                               device)
-    judge = check.Judge(cell["config"], device)
+    answers = (ProgramAnswers if program else ControlAnswers)(cell, device)
+    nb = harness.numbering(cell, answers.points)
+    if nb.mismatch is not None:
+        raise SystemExit(f"fembench.control: {nb.mismatch}")
+    judge = check.Judge(cell, device, nb.perm)
     for seed in seeds:
-        rhs = RightHandSides(cell["traffic"], seed, cells, prob.degree, device)
+        rhs = harness.right_hand_sides(cell, seed, nb, device)
         sample = harness.sample_of(seed, rhs.count, harness.SAMPLE)
         kept, vcycles = answers(rhs, sample)
         yield {"seed": seed, "numbers": judge.numbers(rhs, kept, vcycles),

@@ -6,6 +6,18 @@ the operator and preconditioner that ``run_config`` hands to
 ``solvers/krylov.py::solve``, and then drives ``krylov.solve`` with them on
 the traffic's right-hand sides, one closed-loop caller, for the window's
 seconds.  Nothing here imports JAX or the JAX package.
+
+Each configuration names its plain reference (``reference``; the
+interface is in ``fembench/reference/__init__.py``).  Where the reference
+numbers its DoFs as the box lattice, as the program does on a structured
+mesh, the traffic is made on that lattice and vectors pass between the two
+as they are.  Otherwise ``numbering`` matches the program's finest support
+points to the reference's once, at set-up: each program point has to have
+exactly one reference point within ``POINT_TOL`` of the reference's
+largest extent (a k-d tree's nearest neighbour: rounding both sets to a
+grid would part two points that straddle a grid line), and the
+right-hand sides are made at the reference's unit-box points, put in the
+program's order.
 """
 
 from __future__ import annotations
@@ -13,6 +25,7 @@ from __future__ import annotations
 import copy
 import gc
 import heapq
+import importlib
 import itertools
 import json
 import time
@@ -27,6 +40,8 @@ ROOT = Path(__file__).resolve().parent
 SAMPLE = 3  # right-hand sides whose answers a run checks
 STAGE_REPEATS = 20  # applies a traced stage is timed over
 BENCHMARK = ROOT.parent / "BENCHMARK.json"
+DEFAULT_REFERENCE = "multigrid"  # a configuration file without "reference"
+POINT_TOL = 1e-9  # support points match within this share of the extent
 
 
 def read_json(path: Path) -> dict:
@@ -53,6 +68,7 @@ def load_cell(name: str, benchmark: Path = BENCHMARK) -> dict:
                 if name in m.get("workloads", [name])]
 
     return {"name": name, "cell": cell, "config": config_file["config"],
+            "reference": config_file.get("reference", DEFAULT_REFERENCE),
             "guarantees": config_file["guarantees"],
             "traffic": traffic.load(cell["traffic"]),
             "workload": read_json(ROOT / "workloads" / f"{name}.json"),
@@ -60,6 +76,89 @@ def load_cell(name: str, benchmark: Path = BENCHMARK) -> dict:
             "per_layer": reported(bench["per_layer"]),
             "units": {m["name"]: m["unit"]
                       for m in bench["end_to_end"] + bench["per_layer"]}}
+
+
+def reference(of: dict):
+    """The reference module (``fembench/reference/<name>.py``) of a cell of
+    ``load_cell`` or of a configuration file: the name its ``reference``
+    key gives, ``DEFAULT_REFERENCE`` where it has none."""
+    name = of.get("reference", DEFAULT_REFERENCE)
+    return importlib.import_module(f"{__package__}.reference.{name}")
+
+
+@dataclass
+class Numbering:
+    """How the program's DoFs sit among the reference's: on one box
+    ``lattice`` ((cells, degree), both numbered alike), or program DoF i
+    at the reference's ``perm[i]`` (None: the reference's own numbering),
+    with the traffic's unit-box points ``unit`` and free-DoF mask ``free``
+    in the program's order; ``mismatch`` says why the point sets do not
+    match."""
+
+    lattice: tuple | None = None
+    perm: torch.Tensor | None = None
+    unit: np.ndarray | None = None
+    free: np.ndarray | None = None
+    mismatch: str | None = None
+
+
+def numbering(cell: dict, program_points=None) -> Numbering:
+    """The numbering of a cell's program against its reference.
+    ``program_points`` (a callable giving the program's (n, 3) support
+    points) is called only for a reference that is not on the lattice;
+    without it the answers are in the reference's own numbering (the
+    control)."""
+    ref = reference(cell)
+    lat = ref.lattice(cell["config"])
+    if lat is not None:
+        return Numbering(lattice=lat)
+    support, free, unit = ref.points(cell["config"])
+    if program_points is None:
+        return Numbering(unit=unit, free=free)
+    perm, why = match_points(np.asarray(program_points()), support)
+    if why is not None:
+        return Numbering(mismatch=why)
+    return Numbering(perm=torch.as_tensor(perm), unit=unit[perm],
+                     free=free[perm])
+
+
+def match_points(program: np.ndarray, ref: np.ndarray,
+                 rel_tol: float = POINT_TOL) -> tuple:
+    """(perm, None) with ``ref[perm[i]]`` the one reference point within
+    ``rel_tol`` × the reference's largest extent of ``program[i]``, or
+    (None, why) where the two point sets do not match."""
+    from scipy.spatial import cKDTree
+
+    if program.shape != ref.shape:
+        return None, (f"the program has {program.shape[0]} support points, "
+                      f"the reference {ref.shape[0]}")
+    n = ref.shape[0]
+    tol = rel_tol * max(float(np.ptp(ref, axis=0).max()), 1e-300)
+    dist, idx = cKDTree(ref).query(program, distance_upper_bound=tol,
+                                   workers=-1)
+    lost = int(np.count_nonzero(~np.isfinite(dist)))
+    if lost:
+        return None, (f"{lost} of the program's {n} support points have no "
+                      f"reference point within {tol:.3g}")
+    twice = int(np.count_nonzero(np.bincount(idx, minlength=n) > 1))
+    if twice:
+        return None, (f"{twice} reference points are the nearest of more "
+                      "than one program point")
+    return idx.astype(np.int64), None
+
+
+def right_hand_sides(cell: dict, seed: int, nb: Numbering, device):
+    """The traffic's right-hand sides of a run, in the program's numbering."""
+    from . import traffic
+
+    if nb.mismatch is not None:
+        raise ValueError(f"no right-hand sides: {nb.mismatch}")
+    if nb.lattice is not None:
+        cells, degree = nb.lattice
+        return traffic.RightHandSides(cell["traffic"], seed, cells, degree,
+                                      device)
+    return traffic.PointRightHandSides(cell["traffic"], seed, nb.unit,
+                                       nb.free, device)
 
 
 def synchronize(device: torch.device) -> None:
@@ -100,6 +199,11 @@ class Program:
     def finest_smoother(self):
         return self.multigrid.smoothers[-1]
 
+    def points(self) -> np.ndarray:
+        """(n, 3) physical support points of the solve's DoFs, in its
+        numbering (the outer operator's DoF handler)."""
+        return self.A.__self__.dofs.node_points(np.arange(self.n_dofs))
+
 
 def set_up(config: dict, device="cuda") -> Program:
     """``run_config`` on a copy of ``config`` with "best of" 1 and "print
@@ -135,14 +239,30 @@ def set_up(config: dict, device="cuda") -> Program:
     del res
     op, sm = prog.finest_operator, prog.finest_smoother
     cells = int(op.dofs.mesh.n_cells_total)
-    prog.finest = {"kind": "deformed" if op.deformed else "cartesian",
+    kind = level_kind(op)
+    prog.finest = {"kind": kind,
                    "cells": cells, "n": op.n_dofs, "p": op.degree,
                    "itemsize": op.dtype.itemsize, "degree": int(sm.degree),
-                   # the per-patch tables of a deformed level's Schwarz apply
-                   "patches": (int(sm.M.__self__.V0.shape[0]) if op.deformed
-                               else cells)}
+                   # the per-patch tables of a deformed level's Schwarz
+                   # apply; one element patch a cell on the others
+                   "patches": (int(sm.M.__self__.V0.shape[0])
+                               if kind == "deformed" else cells)}
     gc.collect()
     return prog
+
+
+def level_kind(op) -> str:
+    """"cartesian" or "deformed" for the structured operator, "general" for
+    the unstructured one (kernel F)."""
+    from dealii_asm_tpu_torch.ops.laplace import LaplaceOperator
+    from dealii_asm_tpu_torch.ops.laplace_general import \
+        GeneralLaplaceOperator
+
+    if isinstance(op, GeneralLaplaceOperator):
+        return "general"
+    if isinstance(op, LaplaceOperator):
+        return "deformed" if op.deformed else "cartesian"
+    raise ValueError(f"no roofline count for a level of {type(op).__name__}")
 
 
 def _coarsest(mg):

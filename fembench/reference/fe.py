@@ -1,8 +1,8 @@
 """1D finite-element tables on [0, 1] for the plain reference (NumPy, float64).
 
-Gauss-Legendre quadrature, Gauss-Lobatto-Legendre (GLL) support points,
-Lagrange basis values and derivatives, and the 1D reference mass and
-stiffness matrices.  Written from the textbook definitions: the reference
+Gauss-Legendre quadrature, Gauss-Lobatto-Legendre (GLL) support points and
+their lattice along one axis of a box, Lagrange basis values and
+derivatives, and the 1D reference mass and stiffness matrices.  Written from the textbook definitions: the reference
 shares no code with the program it judges.
 """
 
@@ -24,6 +24,14 @@ def gll(n: int) -> np.ndarray:
         raise ValueError("GLL needs two points or more")
     inner = np.polynomial.legendre.Legendre.basis(n - 1).deriv().roots()
     return np.concatenate([[0.0], 0.5 * (np.sort(inner.real) + 1.0), [1.0]])
+
+
+def node_coordinates(cells: int, degree: int) -> np.ndarray:
+    """Unit-box coordinates of the GLL-node lattice along one axis."""
+    nodes = gll(degree + 1)
+    k = np.arange(cells * degree + 1)
+    cell = np.minimum(k // degree, cells - 1)
+    return (cell + nodes[k - cell * degree]) / cells
 
 
 def lagrange(nodes: np.ndarray, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -32,7 +32,13 @@ of cell layers, on whatever device its tensors live:
   falls below the relative tolerance times ‖b‖ (or the absolute one).
 
 ``build(config, level_dtype=...)`` reads a benchmark configuration (the
-published JSON) and returns the outer operator and the V-cycle.
+published JSON) and returns the outer operator and the V-cycle; an option
+of the smoother or the multigrid that this module does not implement
+(vertex patches, another overlap or weighting, another eigenvalue
+estimate, an intermediate smoother, ...) raises ``ValueError``.  The
+module numbers its DoFs as the box lattice (``lattice``) and gives the
+rest of the interface of ``fembench/reference/__init__.py`` (``n_dofs``,
+``points``, ``cg``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import math
 import numpy as np
 import torch
 
-from .fe import gauss, gll, lagrange, mass_stiffness_1d
+from .fe import gauss, gll, lagrange, mass_stiffness_1d, node_coordinates
 from .kershaw import kershaw
 
 SLAB_BYTES = 256 << 20  # cell-layer blocks of at most this many bytes
@@ -584,11 +590,38 @@ class Problem:
                      else mapping_degree, dtype, device)
 
 
+# the keys of the smoother and of its Schwarz apply that the reference
+# reads, each with the values it implements beyond the check in ``build``
+# (None: any), and the options of the multigrid that it implements only at
+# the program's default; a configuration with any other key or value raises
+_SMOOTHER = {"type": None, "degree": None, "polynomial type": None,
+             "smoothing range": None, "ev algorithm": ("lanczos",),
+             "preconditioner": None}
+_SCHWARZ = {"type": None, "n overlap": None, "weighting type": None,
+            "element centric": (True,), "sub mesh approximation": (3,),
+            "weight sequence": None}
+_MULTIGRID = {"mg intermediate smoother": ({},), "one-sided v-cycle": (False,),
+              "n coarse cycles": (1,)}
+
+
+def _unsupported(params: dict, allowed: dict, every_key: bool) -> list:
+    """'key: value' of the options in ``params`` that ``allowed`` does not
+    accept; with ``every_key`` a key absent from ``allowed`` counts too."""
+    out = []
+    for key, value in params.items():
+        if key not in allowed:
+            if every_key:
+                out.append(f"{key}: {value!r}")
+        elif allowed[key] is not None and value not in allowed[key]:
+            out.append(f"{key}: {value!r}")
+    return out
+
+
 def build(config: dict, device="cpu", outer_dtype=torch.float64,
           level_dtype=torch.float64):
     """(outer Level, VCycle) of a configuration: its float outer operator
     and its multigrid preconditioner (h, p, hp or ph levels; Chebyshev
-    around FDM overlap-1 symm; a dense coarse solve)."""
+    around FDM overlap-1 symm on element patches; a dense coarse solve)."""
     prob = Problem(config)
     pre = config["preconditioner"]
     sm = pre["mg smoother"]
@@ -600,6 +633,12 @@ def build(config: dict, device="cpu", outer_dtype=torch.float64,
             or pre.get("mg coarse grid solver", {}).get("type") != "AMG"):
         raise ValueError("the reference covers Chebyshev (1st kind) around "
                          "FDM overlap-1 symm with a dense coarse solve")
+    bad = (_unsupported(sm, _SMOOTHER, True)
+           + _unsupported(inner, _SCHWARZ, True)
+           + _unsupported(pre, _MULTIGRID, False))
+    if bad:
+        raise ValueError("options the reference does not implement: "
+                         + ", ".join(bad))
     R, p = prob.refinements, prob.degree
     degrees = _degrees(p, pre.get("mg p sequence", "bisect"))
     kind = pre.get("mg type", "h")
@@ -620,3 +659,32 @@ def build(config: dict, device="cpu", outer_dtype=torch.float64,
                                     mapping_degree=min(d0, 3)))
     outer = prob.level(R, p, outer_dtype, device)
     return outer, VCycle(levels, smoothers, transfers, coarse)
+
+
+def lattice(config: dict) -> tuple:
+    """(fine cells (Cx, Cy, Cz), degree): the reference numbers its DoFs
+    as the GLL-node lattice of the box, x fastest."""
+    prob = Problem(config)
+    return [c * 2 ** prob.refinements for c in prob.base], prob.degree
+
+
+def n_dofs(config: dict) -> int:
+    cells, degree = lattice(config)
+    return math.prod(degree * c + 1 for c in cells)
+
+
+def points(config: dict) -> tuple:
+    """(support (n, 3), free (n,), unit (n, 3)) of the finest lattice, x
+    fastest: the mapped support points, the DoFs off the boundary and the
+    unit-box coordinates before any map."""
+    prob = Problem(config)
+    cells, degree = lattice(config)
+    axes = [node_coordinates(c, degree) for c in cells]
+    unit = Level.lattice(axes)
+    support = unit * np.asarray(prob.lengths)
+    if prob.transform is not None:
+        support = prob.transform(support)
+    inner = [(np.arange(len(x)) > 0) & (np.arange(len(x)) < len(x) - 1)
+             for x in axes]
+    free = Level.lattice(inner).all(axis=1)
+    return support, free, unit

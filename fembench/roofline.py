@@ -10,9 +10,10 @@ needs, counted from the shapes.  The peaks are those of one H100 SXM
 which the solver's kernels do not use.
 
 The counts of the Cartesian operator (kernel A), the Cartesian Schwarz
-apply (kernel B), the fused smoother step (kernel C) and the deformed
-operator (kernel E) are copies of those the program's chip checks use; the
-count of the per-cell FDM apply is derived here from its patch tables.
+apply (kernel B), the fused smoother step (kernel C), the deformed
+operator (kernel E) and the unstructured operator (kernel F) are copies of
+those the program's chip checks use; the count of the per-cell FDM apply
+is derived here from its patch tables.
 """
 
 from __future__ import annotations
@@ -54,6 +55,19 @@ def merged_work(cells: int, n: int, p: int, itemsize: int,
             2.0 * cells * (16 * m ** 4 + 9 * m ** 3) + 8.0 * n)
 
 
+def lanes_work(cells: int, n: int, p: int, itemsize: int,
+               residual: bool = False) -> tuple:
+    """(bytes, flop) of one unstructured operator apply: u (and rhs) in, v
+    out, the (C, 6, Q) coefficients and the int32 (C, m³) DoF table; per
+    cell 16 m⁴ + 9 m³ multiply-adds and the summation of the cell results
+    onto the DoFs."""
+    m = p + 1
+    vectors = (3 if residual else 2) * n
+    return ((vectors + 6 * cells * m ** 3 + 4 * m * m) * itemsize
+            + 4 * cells * m ** 3,
+            2.0 * cells * (16 * m ** 4 + 9 * m ** 3) + cells * m ** 3)
+
+
 def patch_fdm_work(patches: int, n: int, m: int, itemsize: int) -> tuple:
     """(bytes, flop) of one per-patch FDM apply: src in, out out, and the
     patch tables, three (P, m, m) eigenvector stacks and the (P, m, m, m)
@@ -70,7 +84,9 @@ def level_vmult_work(shape: dict) -> tuple:
     n, p, s = shape["n"], shape["p"], shape["itemsize"]
     if shape["kind"] == "cartesian":
         return banded_work(n, p, s)
-    return merged_work(shape["cells"], n, p, s)
+    if shape["kind"] == "deformed":
+        return merged_work(shape["cells"], n, p, s)
+    return lanes_work(shape["cells"], n, p, s)
 
 
 def smoother_step_work(shape: dict) -> tuple:
@@ -84,7 +100,8 @@ def smoother_step_work(shape: dict) -> tuple:
         ab, af = banded_work(n, p, s)
         fb, ff = fdm_work(cells, n, p, s)
     else:
-        ab, af = merged_work(cells, n, p, s, residual=True)
+        work = merged_work if shape["kind"] == "deformed" else lanes_work
+        ab, af = work(cells, n, p, s, residual=True)
         ab -= n * s  # the rhs is the step's b, counted once below
         fb, ff = patch_fdm_work(shape["patches"], n, p + 1, s)
     tables = ab + fb - 4 * n * s  # the operator's u, v and the apply's src, out

@@ -46,8 +46,6 @@ import subprocess  # noqa: E402
 import torch  # noqa: E402
 
 from . import check, harness  # noqa: E402
-from .reference.multigrid import Problem  # noqa: E402
-from .traffic import RightHandSides  # noqa: E402
 
 METRICS = Path(__file__).resolve().parent / "metrics"
 
@@ -85,13 +83,16 @@ def card() -> dict:
 def measure(cell: dict, seed: int, seconds: float, trace: bool,
             device="cuda") -> dict:
     """Set-up, window, traced stages and the reference check of one run;
-    returns the run record that the metric readers read."""
+    returns the run record that the metric readers read (without a window
+    where the program's support points do not match the reference's)."""
     workload = cell["workload"]
     prog = harness.set_up(cell["config"], device)
     dev = prog.device
-    prob = Problem(cell["config"])
-    fine_cells = [c * 2 ** prob.refinements for c in prob.base]
-    rhs = RightHandSides(cell["traffic"], seed, fine_cells, prob.degree, dev)
+    nb = harness.numbering(cell, prog.points)
+    if nb.mismatch is not None:
+        harness.free(prog)
+        return {"mismatch": nb.mismatch}
+    rhs = harness.right_hand_sides(cell, seed, nb, dev)
     sample = harness.sample_of(seed, rhs.count, harness.SAMPLE)
     rhs(0)  # the generator's first products
     harness.synchronize(dev)
@@ -110,8 +111,8 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool,
                      if trace else {})
     harness.free(prog)
     del prog
-    run["numbers"] = check.Judge(cell["config"], dev).numbers(rhs, kept,
-                                                              vcycles)
+    run["numbers"] = check.Judge(cell, dev, nb.perm).numbers(rhs, kept,
+                                                             vcycles)
     run["sample_converged"] = [kept[k].converged for k in sorted(kept)]
     run["rhs_iterations"] = {k: window["iterations"][k]
                              for k in range(rhs.count)}
@@ -120,6 +121,10 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool,
 
 def result(cell: dict, run: dict, trace: bool, device_info: dict) -> dict:
     """The result line of a run record."""
+    if "mismatch" in run:  # nothing was solved or compared
+        return {"correct": False, "attempted": 0, "failed": 1, "metrics": {},
+                "device": dict(device_info),
+                "checks": {"numbering": run["mismatch"]}}
     names = cell["per_layer"] if trace else cell["end_to_end"]
     metrics = {}
     for name in names:
@@ -168,11 +173,13 @@ def main(argv=None) -> int:
     info = card()
     line = result(cell, run, bool(args.trace),
                   {"platform": "gpu", "kind": info["kind"], "count": chips,
-                   "memory_peak_bytes": int(run["peak_bytes"])})
-    w = run["window"]
-    print(f"card {info['kind']}, power limit {info['power_limit']}; "
-          f"{len(w['seconds'])} solves, iterations of the right-hand sides "
-          f"{run['rhs_iterations']}, sample {run['sample']}", file=sys.stderr)
+                   "memory_peak_bytes": int(run.get("peak_bytes", 0))})
+    if "window" in run:
+        w = run["window"]
+        print(f"card {info['kind']}, power limit {info['power_limit']}; "
+              f"{len(w['seconds'])} solves, iterations of the right-hand "
+              f"sides {run['rhs_iterations']}, sample {run['sample']}",
+              file=sys.stderr)
     for name, c in line["checks"].items():
         if isinstance(c, dict):
             print(f"check {name} {c['value']!r} limit {c['limit']!r}",

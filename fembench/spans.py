@@ -219,9 +219,6 @@ def traced_again(cell: dict, seed: int, device) -> dict | None:
     """A second set-up of the cell with the tracer on and the span pass
     over the workload's ``profile_solves``: {"setup_s": set-up seconds by
     span, "pass": the pass or None}; None without a tracer."""
-    from .reference.multigrid import Problem
-    from .traffic import RightHandSides
-
     profiling = _profiling()
     if profiling is None:
         return None
@@ -230,9 +227,9 @@ def traced_again(cell: dict, seed: int, device) -> dict | None:
         prog = harness.set_up(cell["config"], device)
     setup = setup_seconds(tracer.records(), profiling.SETUP)
     t1 = time.perf_counter()
-    prob = Problem(cell["config"])
-    fine = [c * 2 ** prob.refinements for c in prob.base]
-    rhs = RightHandSides(cell["traffic"], seed, fine, prob.degree, prog.device)
+    rhs = harness.right_hand_sides(cell, seed,
+                                   harness.numbering(cell, prog.points),
+                                   prog.device)
     out = {"setup_s": setup,
            "pass": span_pass(prog, rhs, int(cell["workload"]["profile_solves"]))}
     harness.free(prog)

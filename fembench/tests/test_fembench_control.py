@@ -14,7 +14,8 @@ from fembench import check, control
 ROOT = Path(__file__).resolve().parents[2]
 
 
-@pytest.mark.parametrize("name,r", [("aniso_q4_r7", 2), ("kershaw_q4", 0)])
+@pytest.mark.parametrize("name,r", [("aniso_q4_r7", 2), ("kershaw_q4", 0),
+                                    ("aniso_q4_r6", 2)])
 def test_the_control_fails_the_residual_gap(tiny_cell, name, r):
     """On the CPU (no TF32) the float32 outer solve is what the comparison
     catches; the sound program reads far below the same limit."""
@@ -30,7 +31,7 @@ def test_the_control_fails_the_residual_gap(tiny_cell, name, r):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["aniso_q4_r7", "kershaw_q4"])
+@pytest.mark.parametrize("name", ["aniso_q4_r7", "kershaw_q4", "aniso_q4_r6"])
 def test_the_control_fails_at_the_cells_own_size(cuda_device, name):
     out = subprocess.run([sys.executable, "-m", "fembench.control",
                           "--workload", name, "--seeds", "5", "6", "7"],

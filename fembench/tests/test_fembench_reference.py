@@ -108,3 +108,34 @@ def test_kershaw_map_keeps_the_cube():
 
     corners = torch.tensor([[0.0, 0, 0], [1, 1, 1], [0, 1, 0], [1, 0, 1]]).numpy()
     assert (kershaw(corners, 0.3, 0.3) == corners).all()
+
+
+def _published(name, refinements):
+    cfg = json.loads((ROOT / "experiments" / f"{name}.json").read_text())
+    cfg["n refinements"] = refinements
+    return cfg
+
+
+@pytest.mark.parametrize("edit", [
+    None,  # e2e_kershaw_fdmv as published: vertex patches
+    ("mg smoother", "ev algorithm", "power iteration"),
+    ("mg smoother", "omega", 0.5),
+    ("preconditioner", "sub mesh approximation", 1),
+    ("preconditioner", "patch size", 3),
+    (None, "one-sided v-cycle", True),
+    (None, "mg intermediate smoother", {"type": "Chebyshev"}),
+])
+def test_options_the_reference_does_not_implement_raise(edit):
+    """The vertex-patch Kershaw solve and other smoother or multigrid
+    options are refused, not judged against element patches."""
+    cfg = _published("e2e_kershaw_fdmv", 0)
+    pre = cfg["preconditioner"]
+    if edit is not None:
+        pre["mg smoother"]["preconditioner"].pop("element centric")
+        group, key, value = edit
+        where = {None: pre, "mg smoother": pre["mg smoother"],
+                 "preconditioner": pre["mg smoother"]["preconditioner"]}[group]
+        where[key] = value
+    with pytest.raises(ValueError,
+                       match=edit[1] if edit else "element centric"):
+        ref.build(cfg, "cpu")
