@@ -8,11 +8,18 @@ floats sums with atomics in an order that changes from run to run, and
 table (``csr_inverse``), the target DoFs are grouped by their number k of
 slots, and each group sums a (rows, k) gather along its last axis, with the
 slots in ascending order.  No atomics, the same result on every run.
+
+While tracing is on (``utils/profiling.py``) each call adds its number of
+groups, one eager gather-and-sum each, to the counter
+"fixed_sum.gathers"; it marks no span, so the device time of a call
+stays with the span that makes it (a transfer's or a Schwarz apply's).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import count
 
 
 def csr_inverse(index: torch.Tensor, n: int):
@@ -45,6 +52,7 @@ class FixedOrderSum:
             self.groups.append((rows, slots[row_ptr[rows][:, None] + offsets]))
 
     def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        count("fixed_sum.gathers", len(self.groups))
         flat = values.reshape(-1)
         out = flat.new_zeros(self.n)
         for rows, table in self.groups:

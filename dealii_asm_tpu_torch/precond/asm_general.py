@@ -23,6 +23,13 @@ dropped on the way back (``:94-114``); RAS keeps each DoF's value from the
 lowest-index patch that holds it (``:114-121``).  The scatter sums in a
 fixed order (``ops/fixed_sum.py``).  The JAX package applies all of this in
 XLA, not in a Pallas kernel.
+
+While tracing is on (``utils/profiling.py``) each apply marks two
+spans: "asm.gather" (the patch gather through ``patch_idx``) and
+"asm.scatter" (the fixed-order scatter); the per-patch solves between
+them stay in the smoothing span around the apply.  A subclass that
+replaces ``local_solves`` (the access study's chunked ``GatherASM``)
+keeps only the scatter's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..fem.general_patches import (general_element_patch_indices,
                                    general_vertex_patch_indices)
 from ..ops.fixed_sum import FixedOrderSum
+from ..utils.profiling import span
 from .asm import (_check_options, element_fdm_collection, patch_apply,
                   ras_ownership, register_patch_tables,
                   vertex_fdm_collection, work_dtype)
@@ -124,14 +132,16 @@ class GeneralASMPreconditioner(nn.Module):
         y = self.local_solves(torch.cat([x, x.new_zeros(1)]), dt)
         if self.ras_mask is not None:
             y = y.reshape(self.ras_mask.shape) * self.ras_mask.to(dt)
-        dst = self._scatter(y)
+        with span("asm.scatter"):
+            dst = self._scatter(y)
         if self.weighting_type in ("post", "symm"):
             dst = dst * w
         return dst.to(src.dtype)
 
     def local_solves(self, xpad: torch.Tensor, dt) -> torch.Tensor:
         """The (P, m, ..., m) patch solves of the zero-slot padded vector."""
-        W = xpad[self.patch_idx].reshape((-1,) + (self.m,) * self.dim)
+        with span("asm.gather"):
+            W = xpad[self.patch_idx].reshape((-1,) + (self.m,) * self.dim)
         return patch_apply(self, W, dt)
 
     def forward(self, src):

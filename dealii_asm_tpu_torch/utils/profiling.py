@@ -10,8 +10,13 @@ counters), as one process-wide tracer that is off by default:
   single check of a module global: no string, no CUDA event, no
   ``record_function``.
 - ``count(name, n=1)`` adds to the innermost open span and to the run's
-  total (host syncs, allocator segments); the run's totals also hold the
-  kernel launches of the traced stretch (``kernels.LAUNCHES``).
+  total (host syncs, allocator segments, the fixed-order scatter's group
+  gathers "fixed_sum.gathers"); the run's totals also hold the kernel
+  launches of the traced stretch (``kernels.LAUNCHES``).
+- The unstructured Schwarz apply (``precond/asm_general.py``) marks
+  "asm.gather" and "asm.scatter" inside the smoothing spans of its
+  levels; they are solve spans (``SOLVE``), so the table's solve line
+  counts them.
 - ``spanned(name)`` makes a function (a lazily built table) a span.
 - ``tracing()`` switches the tracer on.  Each span then records its name,
   level, id, parent and solve id (shared by every span of one
@@ -47,7 +52,8 @@ STAGES = {"mg.pre_smooth": "pre smooth", "mg.residual": "residual",
           "mg.prolongate": "prolongate", "mg.post_smooth": "post smooth"}
 SETUP = ("setup.mesh", "setup.dofs", "setup.operator", "setup.transfer",
          "setup.smoother", "setup.coarse", "setup.kernels", "setup.warmup")
-SOLVE = ("solve", "cg.iteration", "cg.operator", "cg.precond", "mg.vcycle")
+SOLVE = ("solve", "cg.iteration", "cg.operator", "cg.precond", "mg.vcycle",
+         "asm.gather", "asm.scatter")
 
 _active = None  # the Tracer while tracing is on
 

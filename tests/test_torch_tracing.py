@@ -22,14 +22,24 @@ Contract:
   device operations gives no attribution;
 - each new reader gives its value on a synthetic run record, and None
   without the record's spans; the solve readers give None where the
-  record has set-up spans but no pass.
+  record has set-up spans but no pass;
+- on the unstructured ball each Schwarz apply marks "asm.gather" and
+  "asm.scatter" once, inside the smoothing spans,
+  and each fixed-order scatter adds its number of valence groups (the
+  distinct patch counts of its table) to "fixed_sum.gathers"; a
+  structured solve records the span names and counters it did before.
 """
 
 import copy
+import json
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from dealii_asm_tpu_torch.ops.fixed_sum import FixedOrderSum
+from dealii_asm_tpu_torch.precond.asm_general import GeneralASMPreconditioner
 from dealii_asm_tpu_torch.utils import profiling
 from fembench import harness, spans, traffic
 from fembench import run as frun
@@ -234,3 +244,63 @@ def test_setup_seconds_are_exclusive():
     assert secs["setup.operator"] == pytest.approx(9.0)
     assert secs["setup.dofs"] == pytest.approx(1.0)
     assert sum(secs.values()) == pytest.approx(10.0)
+
+
+BALL = dict(json.loads((Path(__file__).resolve().parents[1] / "experiments"
+                        / "e2e_ball_q4.json").read_text()),
+            **{"n refinements": 0, "print timing": False})
+ASM_SPANS = ("asm.gather", "asm.scatter")
+
+
+def test_ball_schwarz_spans_and_fixed_sum_gathers(monkeypatch):
+    applies, calls = [], []
+    vmult, call = GeneralASMPreconditioner.vmult, FixedOrderSum.__call__
+
+    def counted_vmult(self, src):
+        applies.append(self)
+        return vmult(self, src)
+
+    def counted_call(self, values):
+        calls.append(self)
+        return call(self, values)
+
+    monkeypatch.setattr(GeneralASMPreconditioner, "vmult", counted_vmult)
+    monkeypatch.setattr(FixedOrderSum, "__call__", counted_call)
+    prog = harness.set_up(BALL, "cpu")  # its smoothers bind the counted vmult
+    applies.clear()
+    calls.clear()
+    free = torch.as_tensor(~prog.A.__self__.dofs.boundary_mask)
+    b = torch.where(free, torch.randn(prog.n_dofs, dtype=torch.float64,
+                                      generator=torch.Generator().manual_seed(3)),
+                    0.0)
+    with profiling.tracing() as tracer:
+        prog.solve(b)
+    recs = tracer.records()
+    assert applies
+    for name in ASM_SPANS:
+        mine = [s for s in recs if s.name == name]
+        assert len(mine) == len(applies), name
+        for s in mine:  # nested in a smoothing stage of a V-cycle
+            assert recs[s.parent].name in ("mg.pre_smooth", "mg.post_smooth")
+    scatters = [s for s in recs if s.name == "asm.scatter"]
+    for s, asm in zip(scatters, applies):
+        idx = asm.patch_idx.numpy().reshape(-1)
+        counts = np.bincount(idx, minlength=asm.dofs.n_dofs + 1)
+        groups = len(set(counts[:asm.dofs.n_dofs].tolist()) - {0})
+        assert s.counts == {"fixed_sum.gathers": groups}
+    assert tracer.totals["fixed_sum.gathers"] == sum(len(f.groups)
+                                                     for f in calls)
+    assert len(calls) > len(applies)  # the transfers' scatters too
+
+
+def test_structured_spans_and_counters_are_as_before():
+    prog = harness.set_up(CONFIGS["h"], "cpu")
+    cells = (2 ** H["n refinements"],) * 3
+    b = traffic.RightHandSides(traffic.load("smooth_rhs8"), 3, cells,
+                               H["degree"], "cpu")(0)
+    with profiling.tracing() as tracer:
+        prog.solve(b)
+    assert {s.name for s in tracer.records()} == {
+        "solve", "cg.iteration", "cg.operator", "cg.precond", "mg.vcycle",
+        *profiling.STAGES}
+    assert set(tracer.totals) == {"host_syncs"}
